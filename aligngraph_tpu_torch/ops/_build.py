@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+At first use, `nvcc` compiles every source under csrc/ into one shared
+library with a plain C interface, in aligngraph_tpu_torch/_build/ (listed
+in .gitignore).  The library's name carries a hash of the sources and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+The library is loaded with ctypes; every entry point's argument types are
+declared here (c_void_p for pointers and the stream, c_int for ints).
+
+Nothing here runs at import time: the CPU path never builds anything.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+ARGTYPES = {
+    # reads, rlens, windows, score, B, L, W, device, stream
+    "ag_sw_score": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # reads, rlens, windows, tb, score, best_i, best_b, B, L, W, device,
+    # stream
+    "ag_sw_dp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # tb, best_i, best_b, g0, pos_map, B, L, W, pad, max_steps, device,
+    # stream
+    "ag_sw_traceback": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME/bin): the CUDA "
+                       "kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libag_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu with nvcc unless the library for these sources
+    exists; returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)     # atomic: a concurrent loader sees all or none
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first use and loaded once."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

@@ -1,0 +1,293 @@
+"""Seed index + candidate-diagonal selection, PyTorch port.
+
+Counterpart of aligngraph_tpu/ops/seeding.py, with the same semantics:
+
+ - build (host, numpy): pack every `seed_len`-mer (2-bit codes) into int32,
+   drop windows containing N, canonicalize (min of the packed k-mer and its
+   reverse complement; odd seed_len so no palindromes), sort by canonical
+   value -> (sorted_kmers, sorted_posflip) with a prefix bucket table.
+   sorted_posflip packs the genome offset (bits 0-30) and a flip bit
+   (bit 31: the genome k-mer was not the canonical form).
+ - lookup (device): canonical query seeds, bucket table, then either the
+   direct-addressed run (suffix_bits == 0) or a bounded binary search.
+ - candidate selection (device): cluster hit diagonals within band_pad per
+   read, both orientations at once (reverse diagonals offset by RC_OFFSET),
+   and keep the top `max_candidates` clusters by (votes desc, diag asc).
+
+The host half is a numpy copy of the JAX module's (which imports jax); the
+device half is plain torch ops on tensors of any device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+INVALID_DIAG = 2**31 - 1
+RC_OFFSET = 1 << 29     # added to reverse-orientation diagonals
+POS_MASK = 0x7FFFFFFF
+_KEY_PAD = 2**31 - 1    # never equals a packed k-mer (< 2^30)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeedIndex:
+    """Sorted canonical k-mer position index + prefix bucket table, as
+    tensors on one device (the genome's "weights" beside its codes).
+
+    bucket_lo[p] is the first index in sorted_kmers whose top
+    (2*seed_len - suffix_bits) packed bits are >= p; search_steps is the
+    binary-search depth inside the largest bucket (0 when direct-addressed).
+    """
+    seed_len: int
+    genome_len: int
+    sorted_kmers: torch.Tensor    # [M] int32 canonical, ascending
+    sorted_posflip: torch.Tensor  # [M] int32 pos | flip<<31
+    bucket_lo: torch.Tensor       # [2^prefix_bits + 1] int32
+    search_steps: int
+    suffix_bits: int
+
+    @classmethod
+    def from_numpy(cls, idx, device) -> "SeedIndex":
+        """The index carried across from any object with the JAX
+        SeedIndex's host fields (sorted_kmers_np, sorted_posflip_np,
+        bucket_lo_np, search_steps, suffix_bits, seed_len, genome_len)."""
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=device)
+        return cls(seed_len=int(idx.seed_len),
+                   genome_len=int(idx.genome_len),
+                   sorted_kmers=t(idx.sorted_kmers_np),
+                   sorted_posflip=t(idx.sorted_posflip_np),
+                   bucket_lo=t(idx.bucket_lo_np),
+                   search_steps=int(idx.search_steps),
+                   suffix_bits=int(idx.suffix_bits))
+
+    def to(self, device) -> "SeedIndex":
+        return dataclasses.replace(
+            self, sorted_kmers=self.sorted_kmers.to(device),
+            sorted_posflip=self.sorted_posflip.to(device),
+            bucket_lo=self.bucket_lo.to(device))
+
+
+def pack_kmers_np(codes: np.ndarray, seed_len: int):
+    """All overlapping seed_len-mers of `codes` -> (packed int32, valid bool).
+
+    packed[i] encodes codes[i:i+seed_len] big-endian 2 bits/base; windows
+    containing N (code>=4) are invalid.
+    """
+    n = len(codes)
+    m = n - seed_len + 1
+    if m <= 0:
+        return (np.zeros(0, np.int32), np.zeros(0, bool))
+    c = codes.astype(np.int64)
+    packed = np.zeros(m, dtype=np.int64)
+    invalid = np.zeros(m, dtype=bool)
+    for k in range(seed_len):
+        w = c[k:k + m]
+        packed = (packed << 2) | np.where(w >= 4, 0, w)
+        invalid |= w >= 4
+    return packed.astype(np.int32), ~invalid
+
+
+def rc_packed_np(packed: np.ndarray, seed_len: int) -> np.ndarray:
+    """Reverse complement of 2-bit packed k-mers (complement = base^3)."""
+    p = packed.astype(np.int64)
+    out = np.zeros_like(p)
+    for i in range(seed_len):
+        out = (out << 2) | (((p >> (2 * i)) & 3) ^ 3)
+    return out.astype(np.int32)
+
+
+def build_index(genome_codes: np.ndarray, seed_len: int = 15) -> SeedIndex:
+    """Host-side one-time canonical index build over the concatenated
+    genome; the returned index lies on the CPU (SeedIndex.to moves it)."""
+    if seed_len > 15:
+        raise ValueError("seed_len must be <= 15 (int32 packing)")
+    if seed_len % 2 == 0:
+        raise ValueError("seed_len must be odd (canonical k-mers need "
+                         "palindrome-free packing)")
+    if len(genome_codes) >= RC_OFFSET - (1 << 20):
+        raise ValueError(
+            f"genome part too large for the int32 seed index "
+            f"({len(genome_codes)} >= 2^29): shard it into parts")
+    packed, valid = pack_kmers_np(genome_codes, seed_len)
+    pos = np.nonzero(valid)[0].astype(np.int32)
+    fwd = packed[pos]
+    rc = rc_packed_np(fwd, seed_len)
+    flip = rc < fwd
+    kmers = np.where(flip, rc, fwd)
+    posflip = np.where(flip, pos | np.int32(-2**31), pos).astype(np.int32)
+    order = np.argsort(kmers, kind="stable")
+    sorted_kmers = kmers[order]
+    # ~4 table slots per k-mer, capped at 26 bits (a 256 MB table)
+    prefix_bits = min(26, 2 * seed_len,
+                      max(14, int(np.ceil(np.log2(max(len(kmers), 2)))) + 2))
+    if 2 * seed_len <= 26 and len(kmers) >= (1 << 20):
+        # big genome + short seed: the full-width table (<= 256 MB) makes
+        # lookups direct-addressed (suffix_bits == 0, no binary probes)
+        prefix_bits = 2 * seed_len
+    suffix_bits = 2 * seed_len - prefix_bits
+    n_buckets = 1 << prefix_bits
+    counts = np.bincount(sorted_kmers >> suffix_bits, minlength=n_buckets)
+    bucket_lo = np.zeros(n_buckets + 1, np.int32)
+    bucket_lo[1:] = np.cumsum(counts).astype(np.int32)
+    max_bucket = int(counts.max()) if counts.size else 0
+    return SeedIndex(
+        seed_len=seed_len,
+        genome_len=int(len(genome_codes)),
+        sorted_kmers=torch.from_numpy(np.ascontiguousarray(sorted_kmers)),
+        sorted_posflip=torch.from_numpy(posflip[order]),
+        bucket_lo=torch.from_numpy(bucket_lo),
+        search_steps=(0 if suffix_bits == 0 else
+                      max(1, int(np.ceil(np.log2(max_bucket + 1))) + 1)),
+        suffix_bits=suffix_bits,
+    )
+
+
+def rc_packed(packed: torch.Tensor, seed_len: int) -> torch.Tensor:
+    """Device rc_packed_np."""
+    p = packed.to(torch.int32)
+    out = torch.zeros_like(p)
+    for i in range(seed_len):
+        out = (out << 2) | (((p >> (2 * i)) & 3) ^ 3)
+    return out
+
+
+def pack_query_seeds(seqs: torch.Tensor, seed_len: int, stride: int):
+    """Pack seeds at `stride` offsets from padded reads [R, L].
+
+    Returns (packed [R, S] int32, offsets [S] int32, valid [R, S] bool);
+    seeds whose window contains a pad/N code are invalid.
+    """
+    R, L = seqs.shape
+    dev = seqs.device
+    offsets = torch.arange(0, max(L - seed_len + 1, 1), stride,
+                           dtype=torch.int32, device=dev)
+    k = torch.arange(seed_len, dtype=torch.int32, device=dev)
+    idx = (offsets[:, None] + k[None, :]).long()
+    w = seqs[:, idx].to(torch.int32)                 # [R, S, seed_len]
+    invalid = (w >= 4).any(dim=-1)
+    w = torch.where(w >= 4, 0, w)
+    shifts = 2 * (seed_len - 1 - k)
+    packed = (w << shifts).sum(dim=-1, dtype=torch.int32)
+    return packed, offsets, ~invalid
+
+
+def slice_gather(arr: torch.Tensor, lo: torch.Tensor, width: int,
+                 pad_value: int = 0) -> torch.Tensor:
+    """Contiguous runs: out[..., j] = arr[clip(lo, 0, M) + j], pad_value
+    past the end of arr (the JAX _slice_gather's semantics)."""
+    M = arr.shape[0]
+    j = torch.arange(width, dtype=torch.int64, device=lo.device)
+    idx = torch.clamp(lo.long(), 0, M)[..., None] + j
+    inside = idx < M
+    if M == 0:
+        return torch.full(idx.shape, pad_value, dtype=arr.dtype,
+                          device=arr.device)
+    vals = arr[torch.clamp(idx, max=M - 1)]
+    return torch.where(inside, vals, pad_value)
+
+
+def _hit_mask(valid, count, max_hits: int):
+    """valid seed, run no longer than max_hits, slot inside the run."""
+    j = torch.arange(max_hits, dtype=torch.int32, device=count.device)
+    return (valid[..., None] & (count[..., None] <= max_hits)
+            & (j < count[..., None]))
+
+
+def lookup_seeds_bucketed(sorted_kmers, sorted_posflip, bucket_lo, packed,
+                          valid, max_hits: int, steps: int,
+                          suffix_bits: int):
+    """Canonical query packs [R, S] -> (posflip [R, S, max_hits] int32,
+    ok [R, S, max_hits] bool).
+
+    Seeds with more than max_hits occurrences are dropped entirely
+    (repetitive-seed policy).  The bucket table bounds each k-mer's run;
+    with suffix_bits == 0 the bucket IS the run (direct addressing),
+    otherwise `steps` bounded binary-search iterations find its left end
+    and the run length (capped at max_hits + 1) comes from the keys that
+    follow it."""
+    M = sorted_kmers.shape[0]
+    prefix = packed >> suffix_bits
+    lohi = slice_gather(bucket_lo, prefix, 2)
+    lo, hi = lohi[..., 0], lohi[..., 1]
+    if suffix_bits == 0:
+        ok = _hit_mask(valid, hi - lo, max_hits)
+        return slice_gather(sorted_posflip, lo, max_hits), ok
+    for _ in range(steps if M else 0):     # an empty index has no probes
+        go = lo < hi
+        mid = (lo + hi) >> 1
+        less = sorted_kmers[torch.clamp(mid, 0, M - 1).long()] < packed
+        lo = torch.where(go & less, mid + 1, lo)
+        hi = torch.where(go & ~less, mid, hi)
+    keys = slice_gather(sorted_kmers, lo, max_hits + 1, pad_value=_KEY_PAD)
+    count = (keys == packed[..., None]).sum(dim=-1, dtype=torch.int32)
+    ok = _hit_mask(valid, count, max_hits)
+    return slice_gather(sorted_posflip, lo, max_hits), ok
+
+
+def sort_pairs(hi: torch.Tensor, lo: torch.Tensor, dim: int = -1):
+    """Stable lexicographic sort by (hi, lo), both int32 -> the sorted
+    positions along `dim`.  The keys are packed into one int64
+    (hi * 2^32 + lo + 2^31), so ties of both keep their original order."""
+    key = hi.to(torch.int64) * (1 << 32) + (lo.to(torch.int64) + (1 << 31))
+    return torch.sort(key, dim=dim, stable=True).indices
+
+
+def select_candidates(posflip, ok, qflip, seed_offsets, qlens,
+                      seed_len: int, band_pad: int, max_candidates: int):
+    """Cluster hit diagonals per read (both orientations at once) -> top
+    candidate diagonals.
+
+    posflip/ok: [R, S, H] from lookup (canonical index);
+    qflip: [R, S] query-seed flip bits; seed_offsets: [S]; qlens: [R].
+
+    Hit orientation o = qflip ^ genome_flip.  Forward diagonal =
+    pos - offset; reverse diagonal = pos - (qlen - offset - seed_len),
+    offset by RC_OFFSET so strands never co-cluster.  A new cluster starts
+    where the gap to the previous sorted diagonal exceeds band_pad; its
+    vote is its size, its representative diagonal its minimum.  Top-C by
+    (votes desc, diag asc).
+
+    Returns (diags [R, C] int32, votes [R, C], orient [R, C] int32); empty
+    slots have diag=INVALID_DIAG, votes=0.
+    """
+    R, S, H = posflip.shape
+    N = S * H
+    dev = posflip.device
+    pos = posflip & POS_MASK
+    gflip = posflip < 0
+    o = gflip ^ qflip[..., None]                       # [R, S, H]
+    off_f = seed_offsets[None, :, None].to(torch.int32)
+    off_r = qlens[:, None, None] - off_f - seed_len
+    diag = torch.where(o, pos - off_r + RC_OFFSET, pos - off_f)
+    diag = torch.where(ok, diag, INVALID_DIAG).reshape(R, N)
+
+    diag = torch.sort(diag, dim=1).values        # invalids sort to the end
+    prev = torch.cat([torch.full((R, 1), -(2**30), dtype=torch.int32,
+                                 device=dev), diag[:, :-1]], dim=1)
+    is_valid = diag != INVALID_DIAG
+    new_cluster = is_valid & ((diag - prev) > band_pad)
+    # cluster votes via run lengths: for a cluster start at i, votes =
+    # (index of the next cluster start, or #valid) - i
+    idx = torch.arange(N, dtype=torch.int32, device=dev).expand(R, N)
+    n_valid = is_valid.sum(dim=1, keepdim=True, dtype=torch.int32)
+    start_idx = torch.where(new_cluster, idx, N)
+    nxt = torch.cat([start_idx[:, 1:],
+                     torch.full((R, 1), N, dtype=torch.int32, device=dev)],
+                    dim=1)
+    next_start = torch.flip(
+        torch.cummin(torch.flip(nxt, dims=[1]), dim=1).values, dims=[1])
+    votes_at_start = torch.minimum(next_start, n_valid) - idx
+    votes = torch.where(new_cluster, votes_at_start, 0)
+    rep_diag = torch.where(new_cluster, diag, INVALID_DIAG)
+    order = sort_pairs(-votes, rep_diag, dim=1)[:, :max_candidates]
+    out_votes = torch.gather(votes, 1, order)
+    out_diag = torch.gather(rep_diag, 1, order)
+    orient = ((out_diag != INVALID_DIAG)
+              & (out_diag >= RC_OFFSET)).to(torch.int32)
+    out_diag = torch.where(out_votes > 0, out_diag - orient * RC_OFFSET,
+                           INVALID_DIAG)
+    return out_diag, out_votes, orient
