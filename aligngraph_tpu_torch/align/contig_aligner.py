@@ -1,0 +1,382 @@
+"""In-engine long-query aligner (the BLAT/pblat/NUCMER replacement),
+PyTorch port.
+
+Counterpart of aligngraph_tpu/align/contig_aligner.py; its output equals
+the JAX ContigAligner.align field by field.  The design is the same:
+  1. host seeding: the chunk's seeds (both orientations) looked up with
+     np.searchsorted in the canonical SeedIndex -> (qpos, diagonal) hits
+  2. host chaining: diagonal clusters, chained into placements when
+     query-collinear (absorbs large indels the way BLAT chains blocks)
+  3. device tile DP: the chunk is cut into 512-base tiles; each
+     (placement, tile) job gets a banded SW + traceback on the aligner's
+     device (ops/banded_sw.banded_sw_posmap_auto: the hand-written CUDA
+     kernels for a CUDA device, the plain torch versions on the CPU)
+  4. host stitch: per-tile position maps merged into the placement's
+     chunk-length pos_map; gapless holes at tile seams re-filled
+  5. the loadContiAli filters (AlignGraph.cpp:841)
+The host parts (_cluster_and_chain, _tile_diags, _enforce_monotone,
+_fill_gapless_holes, _finalize) are copies of the JAX module's: that module
+imports jax, which the machine with the card does not have.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from aligngraph_tpu.align.types import ContigAlignments
+from aligngraph_tpu.config import Config, INIT_CONTIG_THRESHOLD
+from aligngraph_tpu.io.formalize import Contigs
+from aligngraph_tpu_torch.ops.banded_sw import banded_sw_posmap_auto
+from aligngraph_tpu_torch.ops.seeding import (
+    SeedIndex, build_index, pack_kmers_np, rc_packed_np)
+
+TILE = 512
+# every tile re-anchors its diagonal from its own seed hits (_tile_diags),
+# so the band only absorbs within-tile drift (small indels); W = 32 is one
+# warp in the CUDA kernels
+TILE_PAD = 16
+CLUSTER_GAP = 1000        # diagonal distance that separates clusters
+MAX_JOIN_GAP = 20_000     # max genome gap when chaining clusters
+MAX_Q_OVERLAP = 200       # allowed query overlap when chaining
+MAX_PLACEMENTS = 4
+# tile jobs per DP call.  Lanes are independent and padding lanes have
+# tlen 0 (score 0, pos_map all -1), so the batch size changes only the
+# speed, never the output (tests/test_torch_contig_aligner.py)
+DP_BATCH = {"cuda": 2048, "cpu": 512}
+
+_COMP_NP = np.array([3, 2, 1, 0, 4], dtype=np.int8)
+
+
+def _revcomp_np(seq: np.ndarray) -> np.ndarray:
+    return _COMP_NP[seq][::-1]
+
+
+def _cluster_and_chain(qpos: np.ndarray, tpos: np.ndarray, chunk_len: int,
+                       min_votes: int,
+                       max_join_gap: int = MAX_JOIN_GAP) -> List[dict]:
+    """Seed hits -> chained placements.
+
+    Returns list of dicts {clusters: [(diag, qmin, qmax, votes)], votes}.
+    """
+    if len(qpos) == 0:
+        return []
+    diag = tpos.astype(np.int64) - qpos.astype(np.int64)
+    order = np.lexsort((qpos, diag))
+    d, q = diag[order], qpos[order]
+    new = np.empty(len(d), bool)
+    new[0] = True
+    new[1:] = (d[1:] - d[:-1]) > CLUSTER_GAP
+    cid = np.cumsum(new) - 1
+    ncl = cid[-1] + 1
+    cl = []
+    for c in range(ncl):
+        m = cid == c
+        cl.append(dict(diag=int(d[m].min()), qmin=int(q[m].min()),
+                       qmax=int(q[m].max()), votes=int(m.sum()),
+                       q=q[m], d=d[m]))
+    cl = [c for c in cl if c["votes"] >= min_votes]
+    if not cl:
+        return []
+    # chain query-collinear clusters (large indel = diagonal jump)
+    cl.sort(key=lambda c: (c["qmin"], c["diag"]))
+    chains: List[List[dict]] = []
+    used = [False] * len(cl)
+    for i, c in enumerate(cl):
+        if used[i]:
+            continue
+        chain = [c]
+        used[i] = True
+        for j in range(i + 1, len(cl)):
+            if used[j]:
+                continue
+            n = cl[j]
+            prev = chain[-1]
+            qgap = n["qmin"] - prev["qmax"]
+            tgap = (n["diag"] + n["qmin"]) - (prev["diag"] + prev["qmax"])
+            if (qgap > -MAX_Q_OVERLAP and -MAX_Q_OVERLAP < tgap < max_join_gap
+                    and abs(n["diag"] - prev["diag"]) < max_join_gap):
+                chain.append(n)
+                used[j] = True
+        chains.append(chain)
+    out = []
+    for chain in chains:
+        out.append(dict(clusters=chain,
+                        votes=sum(c["votes"] for c in chain)))
+    out.sort(key=lambda p: (-p["votes"],
+                            p["clusters"][0]["diag"]))
+    return out[:MAX_PLACEMENTS]
+
+
+def _tile_diags(chain: List[dict], n_tiles: int) -> np.ndarray:
+    """Per-tile diagonal estimate: min hit diagonal within the tile;
+    carry forward previous tile's estimate for hitless tiles within the
+    chain's query span."""
+    td = np.full(n_tiles, 2**62, np.int64)
+    qlo = min(c["qmin"] for c in chain)
+    qhi = max(c["qmax"] for c in chain)
+    for c in chain:
+        t = (c["q"] // TILE).astype(np.int64)
+        np.minimum.at(td, t, c["d"])
+    has = td != 2**62
+    # carry forward inside [qlo, qhi] tile range
+    t0, t1 = qlo // TILE, qhi // TILE
+    last = None
+    for t in range(t0, min(t1 + 1, n_tiles)):
+        if has[t]:
+            last = td[t]
+        elif last is not None:
+            td[t] = last
+            has[t] = True
+    return np.where(has, td, 2**62), has
+
+
+def _enforce_monotone(pos_map: np.ndarray) -> None:
+    """Keep the maximum-weight strictly-increasing chain of M-blocks.
+
+    Real BLAT PSL blocks are strictly increasing in both query and target;
+    the per-tile DP can map bases on either side of a tile seam to the
+    same (or an earlier) target position, and a repeated target position
+    would make the reference's ContiMer walk (AlignGraph.cpp:2063-2089)
+    loop forever.  Chaining at the block level keeps the real alignment
+    and sheds the junk (a greedy keep-earlier rule would let junk truncate
+    the true suffix)."""
+    idx = np.nonzero(pos_map >= 0)[0]
+    if len(idx) < 2:
+        return
+    # M-blocks: runs of consecutive source bases with consecutive targets
+    vals = pos_map[idx]
+    brk = np.nonzero((np.diff(idx) != 1) | (np.diff(vals) != 1))[0]
+    starts = np.concatenate([[0], brk + 1])
+    ends = np.concatenate([brk + 1, [len(idx)]])
+    if len(starts) == 1:
+        return
+    t0 = vals[starts]
+    t1 = vals[ends - 1] + 1
+    if np.all(t0[1:] >= t1[:-1]):
+        return                      # already strictly increasing
+    m = len(starts)
+    w = (ends - starts).astype(np.int64)
+    # weighted chain DP with target-overlap trimming: a successor block
+    # may overlap its predecessor's target span — the overlapped prefix
+    # is trimmed off (local SW chance-extends block ends past true
+    # breakpoints, so exact non-overlap chaining would disqualify the
+    # real continuation)
+    best = w.copy()
+    parent = np.full(m, -1, np.int64)
+    trim = np.zeros(m, np.int64)
+    for i in range(1, m):
+        ov = np.maximum(t1[:i] - t0[i], 0)
+        kept_w = w[i] - ov
+        gain = np.where(kept_w > 0, best[:i] + kept_w, -1)
+        j = int(np.argmax(gain))            # first max (deterministic)
+        if gain[j] > best[i]:
+            best[i] = gain[j]
+            parent[i] = j
+            trim[i] = ov[j]
+    keep = np.zeros(m, bool)
+    i = int(np.argmax(best))                # first max on ties
+    while i >= 0:
+        keep[i] = True
+        i = int(parent[i])
+    for k in np.nonzero(~keep)[0]:
+        pos_map[idx[starts[k]]:idx[ends[k] - 1] + 1] = -1
+    for k in np.nonzero(keep & (trim > 0))[0]:
+        cut = idx[starts[k] + trim[k] - 1] + 1
+        pos_map[idx[starts[k]]:cut] = -1
+
+
+def _fill_gapless_holes(pos_map: np.ndarray) -> None:
+    """Re-align interior holes where both flanks agree on a gapless join
+    (local SW trims mismatching tile ends; PSL blocks keep them)."""
+    idx = np.nonzero(pos_map >= 0)[0]
+    if len(idx) < 2:
+        return
+    gaps_at = np.nonzero(np.diff(idx) > 1)[0]
+    for k in gaps_at:
+        i0, i1 = idx[k], idx[k + 1]
+        if pos_map[i1] - pos_map[i0] == i1 - i0:
+            pos_map[i0:i1 + 1] = pos_map[i0] + np.arange(i1 - i0 + 1)
+
+
+class ContigAligner:
+    """Aligns formalized contig chunks to the genome; the tile DP runs on
+    `device`.
+
+    index: a seed index of `genome_codes` on the CPU (build_index returns
+    one), shared with a ReadAligner built from the same index; its sorted
+    arrays are read through numpy views, never copied.
+    """
+
+    def __init__(self, genome_codes: np.ndarray, cfg: Config,
+                 index: Optional[SeedIndex] = None,
+                 max_join_gap: int = MAX_JOIN_GAP,
+                 accept: tuple = (INIT_CONTIG_THRESHOLD,
+                                  INIT_CONTIG_THRESHOLD, 200), *, device):
+        self.genome_np = np.asarray(genome_codes, np.int8)
+        self.device = torch.device(device)
+        if self.device.type not in DP_BATCH:
+            raise ValueError(f"no contig-aligner path for device "
+                             f"{self.device}")
+        self.cfg = cfg
+        if index is None:
+            index = build_index(self.genome_np, cfg.seed_len)
+        self.index = index
+        if self.index.sorted_kmers.device.type != "cpu":
+            raise ValueError("the contig aligner seeds on the host: pass "
+                             "the CPU seed index (build_index returns one)")
+        self._sorted_kmers = self.index.sorted_kmers.numpy()
+        self._sorted_posflip = self.index.sorted_posflip.numpy()
+        self.stride = 32 if cfg.fast_map else 16
+        self.min_votes = 4 if cfg.fast_map else 2
+        self.max_join_gap = max_join_gap
+        # (src_ratio, tgt_ratio, min_size) acceptance — the C12 loadContiAli
+        # filter for the assembler path; eval/misassembly consumers pass
+        # relaxed values and filter themselves (0.1 thresholds)
+        self.accept = accept
+        self.dp_batch = DP_BATCH[self.device.type]
+
+    # ------------------------------------------------------------------
+    def _seed_hits(self, seq: np.ndarray):
+        """Host lookup: forward-matching seed hits of `seq` -> (qpos, tpos).
+
+        The index is canonical (ops/seeding.py); a hit counts only when
+        query_flip XOR genome_flip == 0, i.e. `seq` as given matches the
+        genome forward (the caller probes fwd and revcomp separately)."""
+        sl = self.index.seed_len
+        packed, valid = pack_kmers_np(seq, sl)
+        qp = np.arange(0, len(packed), self.stride)
+        packed, valid = packed[qp], valid[qp]
+        qp, packed = qp[valid], packed[valid]
+        rc = rc_packed_np(packed, sl)
+        qflip = rc < packed
+        pcan = np.where(qflip, rc, packed)
+        sk = self._sorted_kmers
+        lo = np.searchsorted(sk, pcan, side="left")
+        hi = np.searchsorted(sk, pcan, side="right")
+        cnt = hi - lo
+        keep = (cnt > 0) & (cnt <= 64)   # repetitive-seed cutoff
+        qp, lo, cnt, qflip = qp[keep], lo[keep], cnt[keep], qflip[keep]
+        if not len(lo):
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        qpos = np.repeat(qp, cnt)
+        qfl = np.repeat(qflip, cnt)
+        pf = np.concatenate(
+            [self._sorted_posflip[l:l + c] for l, c in zip(lo, cnt)])
+        fwd = (pf < 0) == qfl            # genome_flip XOR query_flip == 0
+        tpos = (pf & 0x7FFFFFFF).astype(np.int64)
+        return qpos[fwd].astype(np.int64), tpos[fwd]
+
+    # ------------------------------------------------------------------
+    def align(self, contigs: Contigs) -> ContigAlignments:
+        jobs = []       # (placement_idx, tile_start, tile_seq, tlen, g0)
+        placements = []  # (chunk_id, fr, chunk_len, pos_map buffer)
+        for c in range(contigs.n_chunks):
+            fwd = np.asarray(contigs.chunk_seq(c), np.int8)
+            n_tiles = (len(fwd) + TILE - 1) // TILE
+            for fr, seq in ((0, fwd), (1, _revcomp_np(fwd))):
+                qpos, tpos = self._seed_hits(seq)
+                chains = _cluster_and_chain(qpos, tpos, len(seq),
+                                            self.min_votes,
+                                            self.max_join_gap)
+                for ch in chains:
+                    td, has = _tile_diags(ch["clusters"], n_tiles)
+                    pid = len(placements)
+                    placements.append(dict(
+                        chunk_id=c, fr=fr, length=len(seq),
+                        pos_map=np.full(len(seq), -1, np.int32)))
+                    for t in range(n_tiles):
+                        if not has[t]:
+                            continue
+                        ts = t * TILE
+                        tile = np.full(TILE, 4, np.int8)
+                        piece = seq[ts:ts + TILE]
+                        tile[:len(piece)] = piece
+                        g0 = int(td[t]) + ts
+                        jobs.append((pid, ts, tile, len(piece), g0))
+        self._run_tile_jobs(jobs, placements)
+        return self._finalize(placements, contigs)
+
+    # ------------------------------------------------------------------
+    def _run_tile_jobs(self, jobs, placements):
+        G = len(self.genome_np)
+        W = 2 * TILE_PAD
+        bs = self.dp_batch
+        dev = self.device
+        for s in range(0, len(jobs), bs):
+            blk = jobs[s:s + bs]
+            tiles = np.full((bs, TILE), 4, np.int8)
+            tlens = np.zeros(bs, np.int32)
+            g0s = np.zeros(bs, np.int32)
+            for k, (pid, ts, tile, plen, g0) in enumerate(blk):
+                tiles[k] = tile
+                tlens[k] = plen
+                g0s[k] = np.clip(g0, -(2**30), 2**30)
+            x = g0s[:, None] - TILE_PAD + np.arange(TILE + W)[None, :]
+            ok = (x >= 0) & (x < G)
+            windows = np.where(ok, self.genome_np[np.clip(x, 0, G - 1)],
+                               np.int8(4))
+            # DP + gapless fast path: most tiles are indel-free and get
+            # their pos_map synthesized; the rest take the traceback
+            _, pm_d = banded_sw_posmap_auto(
+                *(torch.from_numpy(a).to(dev)
+                  for a in (tiles, tlens, windows, g0s)), pad=TILE_PAD)
+            pm = pm_d.cpu().numpy()
+            for k, (pid, ts, tile, plen, g0) in enumerate(blk):
+                seg = pm[k, :plen]
+                dst = placements[pid]["pos_map"][ts:ts + plen]
+                np.copyto(dst, seg, where=seg >= 0)
+
+    # ------------------------------------------------------------------
+    def _finalize(self, placements, contigs: Contigs) -> ContigAlignments:
+        rows = dict(chunk_id=[], fr=[], score=[], source_start=[],
+                    source_end=[], source_gap=[], source_size=[],
+                    target_start=[], target_end=[], target_gap=[])
+        maps = []
+        for p in placements:
+            pm = p["pos_map"]
+            _enforce_monotone(pm)
+            _fill_gapless_holes(pm)
+            aligned = np.nonzero(pm >= 0)[0]
+            if len(aligned) == 0:
+                continue
+            ss, se = int(aligned[0]), int(aligned[-1]) + 1
+            m = len(aligned)
+            qgap = (se - ss) - m
+            ts = int(pm[aligned].min())
+            te = int(pm[aligned].max()) + 1
+            tgap = (te - ts) - m
+            size = p["length"]
+            # loadContiAli filter (AlignGraph.cpp:841) — thresholds per
+            # consumer (self.accept)
+            a_src, a_tgt, a_size = self.accept
+            if not (size > a_size
+                    and (se - ss - qgap) / size >= a_src
+                    and (te - ts - tgap) / max(te - ts, 1) >= a_tgt):
+                continue
+            rows["chunk_id"].append(p["chunk_id"])
+            rows["fr"].append(p["fr"])
+            rows["score"].append(m)
+            rows["source_start"].append(ss)
+            rows["source_end"].append(se)
+            rows["source_gap"].append(qgap)
+            rows["source_size"].append(size)
+            rows["target_start"].append(ts)
+            rows["target_end"].append(te)
+            rows["target_gap"].append(tgap)
+            maps.append(pm)
+        return ContigAlignments(
+            chunk_id=np.array(rows["chunk_id"], np.int32),
+            fr=np.array(rows["fr"], np.int8),
+            score=np.array(rows["score"], np.int32),
+            source_start=np.array(rows["source_start"], np.int32),
+            source_end=np.array(rows["source_end"], np.int32),
+            source_gap=np.array(rows["source_gap"], np.int32),
+            source_size=np.array(rows["source_size"], np.int32),
+            target_start=np.array(rows["target_start"], np.int32),
+            target_end=np.array(rows["target_end"], np.int32),
+            target_gap=np.array(rows["target_gap"], np.int32),
+            pos_map=maps,
+        )

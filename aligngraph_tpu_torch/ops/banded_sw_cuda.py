@@ -15,6 +15,8 @@ reported an error, and adds one to its kernel's count in LAUNCHES.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from aligngraph_tpu_torch.ops import _build
@@ -23,15 +25,18 @@ from aligngraph_tpu_torch.ops.banded_sw import (
 )
 
 # launches of each kernel, and the lanes (candidates) they ran on, since
-# the last reset (chip_smoke.py reads them)
+# the last reset (chip_smoke.py reads them).  The pipeline launches from
+# two host threads (read and contig aligners), so updates take the lock.
 LAUNCHES = {"score": 0, "dp": 0, "traceback": 0}
 LANES = {"score": 0, "dp": 0, "traceback": 0}
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        LANES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+            LANES[k] = 0
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -68,8 +73,9 @@ def _launch(name: str, lanes: int, fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    LANES[name] += lanes
+    with _count_lock:
+        LAUNCHES[name] += 1
+        LANES[name] += lanes
 
 
 def _dev_stream(device: torch.device):

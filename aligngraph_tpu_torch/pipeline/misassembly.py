@@ -1,0 +1,336 @@
+"""Misassembly removal — C26 (`removeMisassembly` + `removeMasb` +
+`loadContigAlignment(contigs,id)`, AlignGraph.cpp:4281-4297, 4147-4279,
+4003-4145, 3853-3984).
+
+Per output file (extended / remaining):
+  1. re-formalize its contigs (>200bp kept, 1Mb chunking; sub-200 pieces
+     silently dropped — the reference writes them to an unopened stream)
+  2. in-engine read->contig alignment (replacing bowtie2 -k 1); per-base
+     coverage += over both mates' [targetStart, targetEnd) spans for
+     pairs with both mates mapped (AlignGraph.cpp:3968-3974)
+  3. contig->genome placements (replacing blat/nucmer) with de-chunked
+     source coordinates, MIN_THRESHOLD (0.1) filters, conflict/close
+     resolution, cross-chromosome dedup, then overlap/adjacency splits at
+     minimum-coverage bases (AlignGraph.cpp:4093-4141)
+  4. removeMasb: regions aligned >=0.8 of the contig => whole contig
+     safe; otherwise covered spans safe and uncovered spans with average
+     read coverage < --coverage removed; split at removed spans, drop
+     pieces <= 200bp, emit `<id> : partN` headers; chaff appended for the
+     remaining file (AlignGraph.cpp:4147-4279)
+
+PyTorch port: a copy of aligngraph_tpu/pipeline/misassembly.py (which
+imports the JAX aligners) with the port's ReadAligner, ContigAligner and
+span_coverage on `device`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+import torch
+
+from aligngraph_tpu.config import MIN_THRESHOLD, Config
+from aligngraph_tpu.graph.traverse import _overlap
+from aligngraph_tpu.io.fasta import decode, write_fasta
+from aligngraph_tpu.io.formalize import Contigs, Reads, formalize_contigs
+from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
+from aligngraph_tpu_torch.align.read_aligner import ReadAligner
+from aligngraph_tpu_torch.evaluate.evaluate import _close, _conflict
+from aligngraph_tpu_torch.parallel.coverage import span_coverage
+
+SEP_N = 64
+# Per-group cap on the concatenated contig axis for device span coverage:
+# bounds the O(axis) delta vector and keeps int32 coordinates exact
+# (patchable in tests to force multi-group splitting).
+_COV_CHUNK = 1 << 28
+NONE = -1
+
+
+@dataclasses.dataclass
+class _CPos:
+    target_id: int
+    source_start: int
+    source_end: int
+    target_start: int
+    target_end: int
+    fr: int
+
+
+def _coverage_from_reads(reads: Reads, contigs: Contigs, cfg: Config,
+                         device):
+    """Steps 1-2: per-base read coverage over de-chunked contigs."""
+    # concat chunk axis with separators
+    pieces, offs = [], []
+    cursor = 0
+    sep = np.full(SEP_N, 4, np.int8)
+    for c in range(contigs.n_chunks):
+        offs.append(cursor)
+        s = np.asarray(contigs.chunk_seq(c), np.int8)
+        pieces.append(s)
+        pieces.append(sep)
+        cursor += len(s) + SEP_N
+    axis = np.concatenate(pieces) if pieces else np.zeros(0, np.int8)
+    offs_a = np.array(offs, np.int64)
+    cov = [np.zeros(len(s), np.int32) for s in contigs.seqs]
+    if len(axis) < cfg.seed_len or reads.n_pairs == 0:
+        return cov
+    # raw records: the reference's coverage loader (AlignGraph.cpp:
+    # 3940-3984) has no C13 ratio filter
+    aligner = ReadAligner.build(axis, cfg, c13=False, device=device)
+    ali = aligner.align(reads)
+    # best alignment per pair only (bowtie2 -k 1 analog): first record
+    first = np.concatenate(
+        [[True], ali.pair_id[1:] != ali.pair_id[:-1]]) if ali.n else \
+        np.zeros(0, bool)
+    # vectorized span coverage on the device (replaces the reference's
+    # sequential cov[lo:hi] += 1 loop, AlignGraph.cpp:3940-3984): map each
+    # span into DE-CHUNKED real-contig coordinates (spans from a mid-chunk
+    # of a >1 Mb contig may run past the chunk into the next chunk of the
+    # same real contig, exactly like the host loop's min(hi, len(real))
+    # clip), accumulate once over the concatenated real axis, slice back.
+    rsel = np.nonzero(first)[0]
+    ts = ali.target_start[rsel].reshape(-1).astype(np.int64)
+    te = ali.target_end[rsel].reshape(-1).astype(np.int64)
+    chunk = np.searchsorted(offs_a, ts, side="right") - 1
+    okc = (chunk >= 0) & (chunk < contigs.n_chunks)
+    chunk_c = np.clip(chunk, 0, max(contigs.n_chunks - 1, 0))
+    real_of = np.asarray(contigs.chunk_real, np.int64)[chunk_c]
+    base_of = np.asarray(contigs.chunk_start, np.int64)[chunk_c]
+    real_len = np.array([len(c) for c in cov], np.int64)
+    real_offs = np.concatenate([[0], np.cumsum(real_len)])
+    lo_r = ts - offs_a[chunk_c] + base_of
+    hi_r = np.minimum(te - offs_a[chunk_c] + base_of, real_len[real_of])
+    lo_r = np.maximum(lo_r, 0)
+    starts2 = (real_offs[real_of] + lo_r)[okc]
+    ends2 = (real_offs[real_of] + np.maximum(hi_r, lo_r))[okc]
+    G = int(real_offs[-1])
+    if len(starts2) and G:
+        # Chunk the concatenated axis so int32 coordinates cannot wrap and
+        # the O(axis) device delta vector stays bounded (<=1 GB int32).
+        # Groups split on whole-contig boundaries; spans never cross a real
+        # contig, so per-group accumulation is exact.
+        CHUNK = _COV_CHUNK
+        r0 = 0
+        while r0 < contigs.n_real:
+            r1 = r0 + 1
+            while (r1 < contigs.n_real
+                   and real_offs[r1 + 1] - real_offs[r0] <= CHUNK):
+                r1 += 1
+            base = int(real_offs[r0])
+            g = int(real_offs[r1]) - base
+            m = (starts2 >= base) & (starts2 < base + g)
+            if m.any() and g:
+                covax = span_coverage(
+                    torch.from_numpy((starts2[m] - base).astype(np.int32)
+                                     ).to(device),
+                    torch.from_numpy((np.minimum(ends2[m], base + g)
+                                      - base).astype(np.int32)).to(device),
+                    G=g).cpu().numpy()
+                for r in range(r0, r1):
+                    o = int(real_offs[r]) - base
+                    cov[r] += covax[o:o + len(cov[r])]
+            r0 = r1
+    return cov
+
+
+def _placements(contigs: Contigs, genome_codes: np.ndarray, cfg: Config,
+                cov: List[np.ndarray], device) -> List[List[_CPos]]:
+    """Step 3: de-chunked contig->genome placements with splits."""
+    positions: List[List[_CPos]] = [[] for _ in range(contigs.n_real)]
+    if contigs.n_real == 0:
+        return positions
+    # small join gap: chimera junctions must NOT be chained into one
+    # placement (the reference's pblat -fastMap does not chain introns);
+    # relaxed acceptance — this loader's own MIN_THRESHOLD filter applies
+    ali = ContigAligner(genome_codes, cfg, max_join_gap=2000,
+                        accept=(0.0, 0.0, 0), device=device).align(contigs)
+    for r in range(ali.n):
+        chunk = int(ali.chunk_id[r])
+        real = int(contigs.chunk_real[chunk])
+        off = int(contigs.chunk_start[chunk])
+        ss = int(ali.source_start[r]) + off
+        se = int(ali.source_end[r]) + off
+        sgap = int(ali.source_gap[r])
+        ts, te = int(ali.target_start[r]), int(ali.target_end[r])
+        tgap = int(ali.target_gap[r])
+        if not (se - ss >= 100
+                and (se - ss - sgap) / (se - ss) >= MIN_THRESHOLD
+                and te - ts > 0
+                and (te - ts - tgap) / (te - ts) >= MIN_THRESHOLD):
+            continue
+        keep = True
+        for p in positions[real]:
+            if p.target_id != NONE and p.target_id == 0 and \
+                    _conflict(ss, se, p.source_start, p.source_end):
+                if se - ss < p.source_end - p.source_start:
+                    keep = False
+                else:
+                    p.target_id = NONE
+        if keep:
+            positions[real].append(_CPos(0, ss, se, ts, te,
+                                         int(ali.fr[r])))
+
+    # close-merge (AlignGraph.cpp:4068-4081)
+    for plist in positions:
+        for pp in range(len(plist)):
+            ppp = 0
+            while ppp < len(plist):
+                a, b = plist[pp], plist[ppp]
+                if (ppp != pp and a.target_id != NONE
+                        and b.target_id != NONE
+                        and a.target_id == b.target_id
+                        and _close(a.source_end, b.source_start,
+                                   abs(a.source_end - a.source_start) // 10)
+                        and _close(a.target_end, b.target_start,
+                                   abs(a.target_end - a.target_start) // 10)
+                        and a.fr == b.fr):
+                    a.source_end = b.source_end
+                    a.target_end = b.target_end
+                    b.target_id = NONE
+                    ppp = 0
+                ppp += 1
+
+    # cross-chromosome dedup (AlignGraph.cpp:4083-4091)
+    for plist in positions:
+        for pp in range(len(plist)):
+            for ppp in range(pp + 1, len(plist)):
+                a, b = plist[pp], plist[ppp]
+                if a.target_id != NONE and b.target_id != NONE and \
+                        _conflict(a.source_start, a.source_end,
+                                  b.source_start, b.source_end):
+                    if a.source_end - a.source_start > \
+                            b.source_end - b.source_start:
+                        b.target_id = NONE
+                    else:
+                        a.target_id = NONE
+
+    # overlap / adjacency splits at minimum-coverage base
+    # (AlignGraph.cpp:4093-4141)
+    for real, plist in enumerate(positions):
+        c = cov[real]
+        for pp in range(len(plist)):
+            for ppp in range(pp + 1, len(plist)):
+                a, b = plist[pp], plist[ppp]
+                if a.target_id == NONE or b.target_id == NONE:
+                    continue
+                if _overlap(a.source_start, a.source_end,
+                            b.source_start, b.source_end):
+                    if a.source_start <= b.source_start:
+                        start, end = b.source_start, a.source_end - 1
+                    else:
+                        start, end = a.source_start, b.source_end - 1
+                    start = max(0, min(start, len(c) - 1))
+                    end = max(0, min(end, len(c) - 1))
+                    if end >= start:
+                        span = c[start:end + 1]
+                        mp = start + int(np.argmin(span))
+                    else:
+                        mp = start
+                    if a.source_start <= b.source_start:
+                        a.source_end = mp
+                        b.source_start = mp + 1
+                    else:
+                        b.source_end = mp
+                        a.source_start = mp + 1
+                elif a.source_end == b.source_start and \
+                        0 < a.source_end <= len(c):
+                    if c[a.source_end - 1] < c[min(b.source_start,
+                                                  len(c) - 1)]:
+                        a.source_end -= 1
+                    else:
+                        b.source_start += 1
+                elif b.source_end == a.source_start and \
+                        0 < b.source_end <= len(c):
+                    if c[b.source_end - 1] < c[min(a.source_start,
+                                                   len(c) - 1)]:
+                        b.source_end -= 1
+                    else:
+                        a.source_start += 1
+    return positions
+
+
+def remove_misassembly(file_path: str, cfg: Config,
+                       genome_codes: np.ndarray, reads: Reads,
+                       which: str,
+                       chaff: Optional[tuple] = None,
+                       out_path: Optional[str] = None, *, device) -> str:
+    """Correct one output file; returns the corrected path."""
+    contigs = formalize_contigs(file_path)
+    cov = _coverage_from_reads(reads, contigs, cfg, device)
+    positions = _placements(contigs, genome_codes, cfg, cov, device)
+
+    corrected_ids: List[str] = []
+    corrected_seqs: List[bytes] = []
+    for real in range(contigs.n_real):
+        seq = contigs.seqs[real]
+        c = cov[real].copy()
+        plist = positions[real]
+        whole_safe = any(
+            p.target_id != NONE
+            and (p.source_end - p.source_start) / len(seq) >= 0.8
+            for p in plist)
+        if whole_safe:
+            state = np.full(len(seq), -1, np.int64)   # all safe
+        else:
+            state = c.astype(np.int64)                # raw coverage
+            for p in plist:
+                if p.target_id != NONE:
+                    lo = max(0, p.source_start)
+                    hi = min(len(seq), p.source_end)
+                    state[lo:hi] = -1
+            # region sweep (AlignGraph.cpp:4172-4210)
+            unsafe = state != -1
+            bp = 0
+            n = len(seq)
+            while bp < n:
+                if not unsafe[bp]:
+                    bp += 1
+                    continue
+                start = bp
+                while bp < n and unsafe[bp]:
+                    bp += 1
+                end = bp - 1
+                region = state[start:end + 1]
+                if region.mean() < cfg.coverage:
+                    state[start:end + 1] = -2
+                else:
+                    state[start:end + 1] = -1
+        # split at removed spans (AlignGraph.cpp:4228-4254)
+        safe = state == -1
+        pieces = []
+        i = 0
+        n = len(seq)
+        while i < n:
+            if not safe[i]:
+                i += 1
+                continue
+            j = i
+            while j < n and safe[j]:
+                j += 1
+            if j - i > 200:
+                pieces.append(seq[i:j])
+            i = j
+        cid = contigs.ids[real]
+        if len(pieces) == 1:
+            corrected_ids.append(cid)
+            corrected_seqs.append(decode(pieces[0]))
+        else:
+            for spn, piece in enumerate(pieces):
+                corrected_ids.append(f"{cid} : part{spn}")
+                corrected_seqs.append(decode(piece))
+
+    out = out_path or _corrected_path(file_path)
+    with open(out, "wb") as f:
+        write_fasta(f, corrected_ids, corrected_seqs)
+        if which == "remaining" and chaff is not None:
+            write_fasta(f, chaff[0], chaff[1])
+    return out
+
+
+def _corrected_path(file_path: str) -> str:
+    import os
+    d, b = os.path.split(file_path)
+    return os.path.join(d, "corrected_" + b)

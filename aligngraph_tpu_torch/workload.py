@@ -1,9 +1,17 @@
-"""Synthetic PE workload of the read-aligner benchmark (numpy only).
+"""Synthetic workloads of the benchmarks (numpy only).
 
-A copy of bench.make_workload (bench.py imports jax): a random genome, a
-closely related reference (1% SNPs), and 100 bp PE reads at a 500 bp
-insert drawn from the unmutated genome with 0.3% sequencing errors.  The
-same arguments give the same arrays as bench.make_workload.
+make_workload, a copy of bench.make_workload (bench.py imports jax): a
+random genome, a closely related reference (1% SNPs), and 100 bp PE reads
+at a 500 bp insert drawn from the unmutated genome with 0.3% sequencing
+errors.
+
+make_pipeline_workload, with copies of bench_pipeline.py's mutate_fast,
+simulate_pe_reads and cut_contigs (bench_pipeline.py imports jax): a
+target genome, a reference = target + 1% SNPs + small indels, PE 100 bp
+reads from the target at a given depth, and ~3 kb draft contigs of the
+target separated by insert-bridgeable gaps.
+
+The same arguments give the same arrays as the benchmark scripts.
 """
 
 from __future__ import annotations
@@ -38,3 +46,190 @@ def make_workload(genome_len=4_600_000, n_pairs=100_000, read_len=100,
     if return_target:
         return ref, data, lens, target
     return ref, data, lens
+
+
+COMP = np.array([3, 2, 1, 0, 4], np.int8)
+
+
+def mutate_fast(rng, target, snp=0.01, indel=0.0005, max_indel=3):
+    """Vectorized SNP + small-indel mutation (tests/simdata.mutate
+    semantics at Mb scale)."""
+    n = len(target)
+    out = target.copy()
+    m = rng.random(n) < snp
+    out[m] = (out[m] + rng.integers(1, 4, int(m.sum()))) % 4
+    ev = np.nonzero(rng.random(n) < indel)[0]
+    if len(ev) == 0:
+        return out
+    pieces, prev = [], 0
+    for p in ev:
+        if p < prev:
+            continue
+        if rng.random() < 0.5:       # deletion from target
+            d = int(rng.integers(1, max_indel + 1))
+            pieces.append(out[prev:p])
+            prev = p + d
+        else:                        # insertion
+            ins = rng.integers(0, 4, int(rng.integers(1, max_indel + 1)))
+            pieces.append(out[prev:p + 1])
+            pieces.append(ins.astype(np.int8))
+            prev = p + 1
+    pieces.append(out[prev:])
+    return np.concatenate(pieces)
+
+
+def simulate_pe_reads(rng, target, n_pairs, read_len=100, insert=500,
+                      insert_sd=30, err=0.003):
+    """Vectorized FR PE read simulation with gaussian insert sizes ->
+    (data int8 [2*n_pairs, read_len] mate-interleaved, lens int32)."""
+    n = len(target)
+    ins = np.clip(rng.normal(insert, insert_sd, n_pairs).astype(np.int64),
+                  2 * read_len, n - 1)
+    starts = (rng.random(n_pairs) * (n - ins - 1)).astype(np.int64)
+    r1 = target[starts[:, None] + np.arange(read_len)]
+    ends = starts + ins
+    r2 = COMP[target[(ends - read_len)[:, None]
+                     + np.arange(read_len)]][:, ::-1]
+    data = np.empty((2 * n_pairs, read_len), np.int8)
+    data[0::2] = r1
+    data[1::2] = r2
+    e = rng.random(data.shape) < err
+    data[e] = (data[e] + rng.integers(1, 4, int(e.sum()))) % 4
+    return data, np.full(n_pairs, read_len, np.int32)
+
+
+def cut_contigs(rng, target, mean_len=3000, gap_lo=50, gap_hi=400):
+    """Draft fragments of the target with insert-bridgeable gaps."""
+    n = len(target)
+    seqs, pos = [], 0
+    while pos + 500 < n:
+        ln = max(400, int(rng.normal(mean_len, mean_len // 3)))
+        e = min(pos + ln, n)
+        seqs.append(target[pos:e])
+        pos = e + int(rng.integers(gap_lo, gap_hi))
+    return seqs
+
+
+def make_pipeline_workload(genome_len=4_600_000, depth=25.0, read_len=100,
+                           seed=7):
+    """bench_pipeline.py's workload -> (target, ref, data, lens,
+    contig_seqs); depth * genome_len / (2 * read_len) pairs."""
+    n_pairs = int(depth * genome_len / (2 * read_len))
+    rng = np.random.default_rng(seed)
+    target = rng.integers(0, 4, genome_len).astype(np.int8)
+    ref = mutate_fast(rng, target)
+    data, lens = simulate_pe_reads(rng, target, n_pairs, read_len=read_len)
+    return target, ref, data, lens, cut_contigs(rng, target)
+
+
+def tile_lanes(rng, B, L=512, pad=16, G=1_000_000, max_indel=6):
+    """DP lanes shaped as the contig aligner's tile jobs: tiles of a random
+    genome with 1% SNPs and up to two indels of 1..max_indel bases, a
+    diagonal estimate off by up to +-12, ~10% partial tiles, every 29th
+    lane of length 0 (a padding lane); windows[c, x] = genome[g0 - pad + x]
+    (4 outside).  -> numpy (tiles int8 [B, L], tlens int32, windows int8
+    [B, L + 2*pad], g0 int32)."""
+    genome = rng.integers(0, 4, G).astype(np.int8)
+    tiles = np.full((B, L), 4, np.int8)
+    tlens = np.full(B, L, np.int32)
+    part = rng.random(B) < 0.1
+    tlens[part] = rng.integers(1, L, int(part.sum()))
+    tlens[::29] = 0
+    g0 = np.zeros(B, np.int32)
+    for c in range(B):
+        st = int(rng.integers(4 * L, G - 4 * L))
+        src = genome[st:st + 2 * L].copy()
+        snp = rng.random(len(src)) < 0.01
+        src[snp] = (src[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+        for _ in range(int(rng.integers(0, 3))):
+            at = int(rng.integers(8, L - 8))
+            n = int(rng.integers(1, max_indel + 1))
+            if rng.random() < 0.5:
+                src = np.concatenate([src[:at], src[at + n:]])
+            else:
+                src = np.concatenate([src[:at], rng.integers(
+                    0, 4, n).astype(np.int8), src[at:]])
+        tiles[c, :tlens[c]] = src[:tlens[c]]
+        g0[c] = st + int(rng.integers(-12, 13))
+    x = g0[:, None].astype(np.int64) - pad + np.arange(L + 2 * pad)[None, :]
+    windows = np.where((x >= 0) & (x < G), genome[np.clip(x, 0, G - 1)],
+                       np.int8(4)).astype(np.int8)
+    return tiles, tlens, windows, g0
+
+
+# --- the small simulator of the tests (a copy of tests/simdata.py's
+# make_simdata; the same seed gives the same arrays) -----------------------
+
+def _mutate(rng, seq, snp_rate=0.01, indel_rate=0.0005, max_indel=3):
+    """SNPs + small indels -> a 'closely related' genome."""
+    out = []
+    i = 0
+    n = len(seq)
+    snp_mask = rng.random(n) < snp_rate
+    indel_mask = rng.random(n) < indel_rate
+    while i < n:
+        b = seq[i]
+        if snp_mask[i]:
+            b = (b + rng.integers(1, 4)) % 4
+        if indel_mask[i]:
+            if rng.random() < 0.5:  # deletion from target
+                i += int(rng.integers(1, max_indel + 1))
+                continue
+            ins = rng.integers(0, 4, size=int(rng.integers(1, max_indel + 1)))
+            out.append(np.array([b], dtype=np.int8))
+            out.append(ins.astype(np.int8))
+            i += 1
+            continue
+        out.append(np.array([b], dtype=np.int8))
+        i += 1
+    return np.concatenate(out) if out else np.zeros(0, np.int8)
+
+
+def _simulate_reads(rng, target, n_pairs, read_len, insert, err_rate,
+                    insert_sd=30):
+    """FR PE reads: mate 1 forward at p, mate 2 the reverse complement of
+    [p+ins-L, p+ins)."""
+    n = len(target)
+    reads1, reads2 = [], []
+    for _ in range(n_pairs):
+        ins = int(np.clip(rng.normal(insert, insert_sd), 2 * read_len, n - 1))
+        p = int(rng.integers(0, n - ins))
+        r1 = target[p:p + read_len].copy()
+        r2 = COMP[target[p + ins - read_len:p + ins]][::-1]
+        for r in (r1, r2):
+            errs = np.nonzero(rng.random(read_len) < err_rate)[0]
+            r[errs] = (r[errs] + rng.integers(1, 4, size=len(errs))) % 4
+        reads1.append(r1)
+        reads2.append(r2)
+    return reads1, reads2
+
+
+def _simulate_contigs(rng, target, n_contigs, mean_len=3000, min_len=400):
+    """Disjoint draft fragments of the target with gaps between them."""
+    n = len(target)
+    starts = np.sort(rng.choice(n, size=n_contigs, replace=False))
+    contigs = []
+    prev_end = 0
+    for s in starts:
+        s = max(int(s), prev_end + 50)
+        ln = max(min_len, int(rng.normal(mean_len, mean_len // 3)))
+        e = min(s + ln, n)
+        if e - s < min_len or s >= n:
+            continue
+        contigs.append(target[s:e].copy())
+        prev_end = e
+    return contigs
+
+
+def make_simdata(seed=0, genome_len=50_000, n_pairs=2000, read_len=100,
+                 insert=500, n_contigs=12, snp_rate=0.01, err_rate=0.005):
+    """-> (target, reference, reads1, reads2, contigs): a random target, a
+    reference = target + SNPs + small indels, PE reads from the target and
+    draft contigs of it, as the tests' simulator makes them."""
+    rng = np.random.default_rng(seed)
+    target = rng.integers(0, 4, size=genome_len).astype(np.int8)
+    reference = _mutate(rng, target, snp_rate=snp_rate)
+    reads1, reads2 = _simulate_reads(rng, target, n_pairs, read_len, insert,
+                                     err_rate)
+    contigs = _simulate_contigs(rng, target, n_contigs)
+    return target, reference, reads1, reads2, contigs

@@ -9,14 +9,29 @@ Phases, one line each, any failure raises (non-zero exit):
   3. kernels: each hand-written kernel against its plain PyTorch version
      on the same CUDA tensors, at the read aligner's shapes (L 100, pad 16,
      98,304 score lanes; a few thousand dp/traceback lanes; pad 8; ~30%
-     indel lanes; rlen-0 lanes).  Everything is integer: tolerance 0.
-     CUDA-event times, kernel vs plain.
-  4. main path: ReadAligner.build(..., device="cuda").align on the
+     indel lanes; rlen-0 lanes) and at the contig aligner's tile (L 512,
+     pad 16, 2,048 lanes: indels up to 6 bases, diagonal offsets up to
+     +-12, partial and length-0 tiles).  Everything is integer: tolerance
+     0.  CUDA-event times, kernel vs plain, per shape.
+  4. read aligner: ReadAligner.build(..., device="cuda").align on the
      benchmark workload (4.6 Mb genome, 100,000 pairs of 100 bp, insert
      500, 1% SNPs, seed 0, batch_pairs 32,768); 3 timed runs after a
      warm-up; every kernel must have launched.
   5. check: align on the first 2,048 pairs on "cuda" and on "cpu" (the
      plain path); every PairAlignments field must be equal.
+  6. pipeline small: tests/test_pipeline.py's sim (seed 42, 30 kb, 3,000
+     pairs, 10 contigs) through the CLI (aligngraph_tpu_torch.__main__.main)
+     on "cuda" and on "cpu", with --misassemblyRemoval and with --part 2
+     --iterativeMap: the extended, remaining and corrected FASTA and every
+     tmp/ stage file byte-equal, every kernel launched on "cuda" in the
+     first; Eval of the extended contigs on both devices equal.
+  7. pipeline full: run_pipeline on "cuda" on bench_pipeline.py's
+     workload (seed 7, 4.6 Mb, depth 25 = 575,000 pairs of 100 bp, ~1,424
+     draft contigs, distance 300-700, one part), then Eval of the extended
+     contigs against the target on "cuda": per-stage seconds, launches and
+     lanes per kernel, Eval beside the JAX package's BENCH_PIPE.json
+     figures (reported, not asserted).  Fails if no contig is extended or
+     the native C++ traversal did not load.
 Then a JSON line of per-kernel results, nvidia-smi's line, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -24,16 +39,22 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 L_MAIN = 100          # read length of the benchmark workload
 PAD_MAIN = 16         # Config.band_pad
+L_TILE = 512          # the contig aligner's TILE and TILE_PAD
+PAD_TILE = 16
+B_TILE = 2048         # its DP batch on CUDA
 B_SCORE = 98_304      # DP lanes of one 32,768-pair batch (TOP = 3R/2)
 B_DP = 4_096
 FIELDS = ("pair_id", "fr", "score", "source_start", "source_end",
@@ -110,83 +131,342 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def check_kernels(results: dict) -> None:
+    """Each kernel against its plain version at every shape of the paths;
+    CUDA-event times per shape go to results[name]["shapes"], and the read
+    aligner's (L 100, pad 16) are also results[name]["ms"/"plain_ms"]."""
     from aligngraph_tpu_torch.ops import banded_sw as plain
     from aligngraph_tpu_torch.ops import banded_sw_cuda as k
+    from aligngraph_tpu_torch.workload import tile_lanes
 
     rng = np.random.default_rng(0)
-    cases = [("L100 pad16 score", B_SCORE, PAD_MAIN, True),
-             ("L100 pad16", B_DP, PAD_MAIN, True),
-             ("L100 pad8", B_DP, 8, False)]
-    for label, B, pad, timed in cases:
-        reads, rlens, windows, g0 = (torch.from_numpy(a).cuda() for a in
-                                     dp_lanes(rng, B, L_MAIN, pad))
+    # (label, lanes, pad, kernels timed here, score kernel only)
+    cases = [
+        ("L100 pad16", lambda: dp_lanes(rng, B_SCORE, L_MAIN, PAD_MAIN),
+         PAD_MAIN, ("score",), True),
+        ("L100 pad16", lambda: dp_lanes(rng, B_DP, L_MAIN, PAD_MAIN),
+         PAD_MAIN, ("dp", "traceback"), False),
+        ("L100 pad8", lambda: dp_lanes(rng, B_DP, L_MAIN, 8), 8, (), False),
+        ("L512 pad16", lambda: tile_lanes(rng, B_TILE, L_TILE, PAD_TILE),
+         PAD_TILE, ("score", "dp", "traceback"), False),
+    ]
+    for label, make, pad, timed, score_only in cases:
+        reads, rlens, windows, g0 = (torch.from_numpy(a).cuda()
+                                     for a in make())
+        B = reads.shape[0]
         ref = plain.banded_sw(reads, rlens, windows, pad)
-        if B == B_SCORE:
-            score = k.sw_score_cuda(reads, rlens, windows, pad)
-            torch.cuda.synchronize()
-            err = max_err(score, ref.score)
-            results["score"]["max_abs_err"] = max(
-                results["score"]["max_abs_err"], err)
-            if timed:
-                results["score"]["ms"] = cuda_ms(
-                    lambda: k.sw_score_cuda(reads, rlens, windows, pad), 20)
-                results["score"]["plain_ms"] = cuda_ms(
-                    lambda: plain.banded_sw(reads, rlens, windows, pad), 2)
-            phase("kernels", f"{label}: score lanes {B} max_abs_err {err}")
-            continue
         score = k.sw_score_cuda(reads, rlens, windows, pad)
-        res = k.banded_sw_cuda(reads, rlens, windows, pad)
         torch.cuda.synchronize()
-        err_score = max_err(score, ref.score)
-        err_dp = max(max_err(res.score, ref.score),
-                     max_err(res.best_i, ref.best_i),
-                     max_err(res.best_b, ref.best_b),
-                     max_err(res.tb, ref.tb))
-        pm_ref = plain.sw_traceback(ref.tb, ref.best_i, ref.best_b, g0, pad)
-        tb_k = res.tb.permute(1, 0, 2).contiguous()
-        pm = k.sw_traceback_cuda(tb_k, res.best_i, res.best_b, g0, pad)
-        torch.cuda.synchronize()
-        s_all, pm_all = k.banded_sw_posmap_cuda(reads, rlens, windows, g0,
-                                                pad)
-        torch.cuda.synchronize()
-        err_tb = max(max_err(pm, pm_ref), max_err(s_all, ref.score),
-                     max_err(pm_all, pm_ref))
-        # the two-pass fast path against the plain composition
-        smin = torch.full_like(rlens, 20)
-        s_f, pm_f = k.banded_sw_posmap_fast(reads, rlens, windows, g0, pad,
-                                            smin=smin)
-        s_p, pm_p = plain.banded_sw_posmap_plain(reads, rlens, windows, g0,
-                                                 pad, smin=smin)
-        torch.cuda.synchronize()
-        err_fast = max(max_err(s_f, s_p), max_err(pm_f, pm_p))
-        for name, err in (("score", err_score), ("dp", err_dp),
-                          ("traceback", max(err_tb, err_fast))):
+        errs = {"score": max_err(score, ref.score)}
+        plain_dp = (lambda: plain.banded_sw(reads, rlens, windows, pad))
+        fns = {"score": (lambda: k.sw_score_cuda(reads, rlens, windows,
+                                                 pad), plain_dp)}
+        msg = f"{label}: lanes {B} max_abs_err score {errs['score']}"
+        if not score_only:
+            res = k.banded_sw_cuda(reads, rlens, windows, pad)
+            torch.cuda.synchronize()
+            errs["dp"] = max(max_err(res.score, ref.score),
+                             max_err(res.best_i, ref.best_i),
+                             max_err(res.best_b, ref.best_b),
+                             max_err(res.tb, ref.tb))
+            pm_ref = plain.sw_traceback(ref.tb, ref.best_i, ref.best_b, g0,
+                                        pad)
+            tb_k = res.tb.permute(1, 0, 2).contiguous()
+            pm = k.sw_traceback_cuda(tb_k, res.best_i, res.best_b, g0, pad)
+            s_all, pm_all = k.banded_sw_posmap_cuda(reads, rlens, windows,
+                                                    g0, pad)
+            torch.cuda.synchronize()
+            err_tb = max(max_err(pm, pm_ref), max_err(s_all, ref.score),
+                         max_err(pm_all, pm_ref))
+            # the two-pass fast path against the plain composition
+            smin = torch.full_like(rlens, 20)
+            s_f, pm_f = k.banded_sw_posmap_fast(reads, rlens, windows, g0,
+                                                pad, smin=smin)
+            s_p, pm_p = plain.banded_sw_posmap_plain(reads, rlens, windows,
+                                                     g0, pad, smin=smin)
+            torch.cuda.synchronize()
+            err_fast = max(max_err(s_f, s_p), max_err(pm_f, pm_p))
+            errs["traceback"] = max(err_tb, err_fast)
+            fns["dp"] = (lambda: k.sw_dp_cuda(reads, rlens, windows, pad),
+                         plain_dp)
+            fns["traceback"] = (
+                lambda: k.sw_traceback_cuda(tb_k, res.best_i, res.best_b,
+                                            g0, pad),
+                lambda: plain.sw_traceback(ref.tb, ref.best_i, ref.best_b,
+                                           g0, pad))
+            n_gapped = int((ref.score > plain.gapless_diag(
+                reads, rlens, windows, pad)[0]).sum())
+            msg += (f" dp {errs['dp']} traceback {err_tb} fast-path "
+                    f"{err_fast} (gapped best {n_gapped}, longest walk "
+                    f"{int((pm_ref >= 0).sum(dim=1).max())})")
+        for name, err in errs.items():
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                                err)
-        if timed:
-            results["dp"]["ms"] = cuda_ms(
-                lambda: k.sw_dp_cuda(reads, rlens, windows, pad), 20)
-            results["dp"]["plain_ms"] = cuda_ms(
-                lambda: plain.banded_sw(reads, rlens, windows, pad), 2)
-            results["traceback"]["ms"] = cuda_ms(
-                lambda: k.sw_traceback_cuda(tb_k, res.best_i, res.best_b,
-                                            g0, pad), 20)
-            results["traceback"]["plain_ms"] = cuda_ms(
-                lambda: plain.sw_traceback(ref.tb, ref.best_i, ref.best_b,
-                                           g0, pad), 2)
-        n_indel_need = int((ref.score > plain.gapless_diag(
-            reads, rlens, windows, pad)[0]).sum())
-        phase("kernels", f"{label}: lanes {B} (gapped best {n_indel_need}) "
-              f"max_abs_err score {err_score} dp {err_dp} traceback "
-              f"{err_tb} fast-path {err_fast}")
+        for name in timed:
+            results[name]["shapes"][label] = {
+                "lanes": B, "ms": cuda_ms(fns[name][0], 20),
+                "plain_ms": cuda_ms(fns[name][1], 2)}
+        phase("kernels", msg)
     bad = {n: r["max_abs_err"] for n, r in results.items()
            if r["max_abs_err"] != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
     for n, r in results.items():
-        phase("kernels", f"{KERNEL_NAMES[n]}: {r['ms']:.4f} ms vs plain "
-              f"{r['plain_ms']:.4f} ms")
+        r["ms"] = r["shapes"]["L100 pad16"]["ms"]
+        r["plain_ms"] = r["shapes"]["L100 pad16"]["plain_ms"]
+        for label, t in r["shapes"].items():
+            phase("kernels", f"{KERNEL_NAMES[n]} {label} ({t['lanes']} "
+                  f"lanes): {t['ms']:.4f} ms vs plain {t['plain_ms']:.4f} "
+                  f"ms")
+
+
+def counted(fn):
+    """fn() with every kernel count set to 0 just before it -> (fn's
+    result, launches, lanes) read just after."""
+    from aligngraph_tpu_torch.ops import banded_sw_cuda as k
+
+    k.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(k.LAUNCHES), dict(k.LANES)
+
+
+def require_launched(path: str, launches: dict, results: dict) -> None:
+    for n, r in results.items():
+        r["launches_by_path"][path] = launches[n]
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on the {path} "
+                             f"path: {launches}")
+
+
+def read_aligner_path(results: dict) -> None:
+    """Phases 4-5: the read aligner on the bench.py workload."""
+    from aligngraph_tpu_torch import Config, ReadAligner, Reads
+    from aligngraph_tpu_torch.ops.seeding import build_index
+    from aligngraph_tpu_torch.workload import make_workload
+
+    n_pairs, batch = 100_000, 32_768
+    ref, data, lens = make_workload(n_pairs=n_pairs)
+    reads = Reads(n_pairs, data.shape[1], data, lens)
+    cfg = Config(distance_low=100, distance_high=900)
+    t0 = time.perf_counter()
+    index = build_index(ref, cfg.seed_len)
+    index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aligner = ReadAligner.from_index(ref, index, cfg, batch_pairs=batch,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    phase("reads", f"index build (host) {index_s:.2f} s, to device "
+          f"{time.perf_counter() - t0:.2f} s; bucket table "
+          f"{aligner.index.bucket_lo.numel()} int32, suffix_bits "
+          f"{aligner.index.suffix_bits}")
+    t0 = time.perf_counter()
+    aligner.align(Reads(batch, data.shape[1], data[:2 * batch],
+                        lens[:batch]))
+    tail = n_pairs % batch
+    aligner.align(Reads(tail, data.shape[1], data[:2 * tail], lens[:tail]))
+    torch.cuda.synchronize()
+    phase("reads", f"warm-up {time.perf_counter() - t0:.2f} s")
+
+    def timed_aligns():
+        walls, outs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            outs.append(aligner.align(reads))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return walls, outs
+
+    (walls, outs), launches, lanes = counted(timed_aligns)
+    require_launched("read_aligner", launches, results)
+    for other in outs[1:]:
+        for f in FIELDS:
+            if not np.array_equal(getattr(other, f), getattr(outs[0], f)):
+                raise AssertionError(f"align is not deterministic: {f}")
+    res = outs[0]
+    aligned = 2 * len(np.unique(res.pair_id))
+    share = aligned / (2 * n_pairs)
+    med = statistics.median(walls)
+    phase("reads", f"walls {[round(w, 4) for w in walls]} s; median "
+          f"{med:.4f} s, min {min(walls):.4f} s; aligned reads/s median "
+          f"{aligned / med:.1f}, best {aligned / min(walls):.1f}; aligned "
+          f"{aligned}/{2 * n_pairs} ({share:.4f}); records {res.n}; "
+          f"launches {launches}; lanes {lanes}")
+    if not share > 0.9:
+        raise AssertionError(f"aligned share {share:.4f} <= 0.9")
+    if res.pos_map.shape != (res.n, 2, L_MAIN):
+        raise AssertionError(f"pos_map shape {res.pos_map.shape}")
+
+    # the CUDA path against the plain CPU path on 2,048 pairs
+    n_chk = 2048
+    sub = Reads(n_chk, data.shape[1], data[:2 * n_chk], lens[:n_chk])
+    t0 = time.perf_counter()
+    got = aligner.align(sub)
+    cpu = ReadAligner.from_index(ref, index, cfg, batch_pairs=batch,
+                                 device="cpu").align(sub)
+    for f in FIELDS:
+        a, b = getattr(got, f), getattr(cpu, f)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"cuda != cpu on field {f}")
+    phase("check", f"cuda == cpu on {n_chk} pairs, {got.n} records, every "
+          f"field ({time.perf_counter() - t0:.1f} s)")
+
+
+def pipeline_files(out: Path) -> dict:
+    """name -> bytes of the FASTA a pipeline run wrote in out (extended,
+    remaining, corrected_*) and in out/tmp (the stage files)."""
+    files = {}
+    for d, prefix in ((out, ""), (out / "tmp", "tmp/")):
+        for f in sorted(os.listdir(d)):
+            if f.endswith(".fa"):
+                files[prefix + f] = (d / f).read_bytes()
+    return files
+
+
+def pipeline_small(results: dict, work: Path) -> None:
+    """Phase 6: the CLI on cuda and on cpu, with --misassemblyRemoval and
+    with --part 2 --iterativeMap."""
+    from aligngraph_tpu_torch import __main__ as cli
+    from aligngraph_tpu_torch import decode, write_fasta
+    from aligngraph_tpu_torch.evaluate.evaluate import evaluate
+    from aligngraph_tpu_torch.workload import make_simdata
+
+    target, reference, reads1, reads2, contigs = make_simdata(
+        seed=42, genome_len=30_000, n_pairs=3000, read_len=100, insert=500,
+        n_contigs=10, snp_rate=0.01, err_rate=0.003)
+    work.mkdir()
+    write_fasta(work / "genome.fa", ["refchr"], [decode(reference)])
+    write_fasta(work / "target.fa", ["chr"], [decode(target)])
+    write_fasta(work / "contigs.fa", [f"ctg{i}" for i in range(len(contigs))],
+                [decode(c) for c in contigs])
+    n = len(reads1)
+    for mate, seqs in (("r1", reads1), ("r2", reads2)):
+        write_fasta(work / f"{mate}.fa", [f"p{i}" for i in range(n)],
+                    [decode(r) for r in seqs])
+    base = ["--read1", str(work / "r1.fa"), "--read2", str(work / "r2.fa"),
+            "--contig", str(work / "contigs.fa"), "--genome",
+            str(work / "genome.fa"), "--distanceLow", "300",
+            "--distanceHigh", "700"]
+    # (name, flags, files that must be among the outputs); the first run
+    # is the path whose launches count, the second covers the per-part
+    # aligners
+    runs = [("misassembly", ["--misassemblyRemoval"],
+             ("extended.fa", "remaining.fa", "corrected_extended.fa",
+              "corrected_remaining.fa", "tmp/_initial_contigs.0.fa",
+              "tmp/_pre_extended_contigs.0.fa",
+              "tmp/_extended_contigs.0.fa")),
+            ("part2_iterative", ["--part", "2", "--iterativeMap"],
+             ("extended.fa", "remaining.fa", "tmp/_initial_contigs.1.fa",
+              "tmp/_pre_extended_contigs.1.fa",
+              "tmp/_extended_contigs.1.fa"))]
+    cwd = os.getcwd()
+    for name, flags, want in runs:
+        files, evals = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = work / f"{name}_{dev}"
+            out.mkdir()
+            argv = base + ["--extendedContig", str(out / "extended.fa"),
+                           "--remainingContig", str(out / "remaining.fa")]
+            os.chdir(out)                   # the CLI's work dir is ./tmp
+            t0 = time.perf_counter()
+            try:
+                rc, launches, lanes = counted(
+                    lambda: cli.main(argv + flags, device=dev))
+            finally:
+                os.chdir(cwd)
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"CLI {name} on {dev} exited {rc}")
+            if dev == "cuda" and name == "misassembly":
+                require_launched("pipeline_small", launches, results)
+            files[dev] = pipeline_files(out)
+            evals[dev] = evaluate(work / "target.fa", out / "extended.fa",
+                                  device=dev)
+            phase("small", f"{name} {dev}: CLI wall {wall:.2f} s, launches "
+                  f"{launches}, lanes {lanes}; Eval {evals[dev]}")
+        if sorted(files["cuda"]) != sorted(files["cpu"]) or \
+                not set(want) <= set(files["cuda"]):
+            raise AssertionError(f"{name}: pipeline files differ: "
+                                 f"{sorted(files['cuda'])} vs "
+                                 f"{sorted(files['cpu'])}")
+        diff = [f for f in files["cpu"]
+                if files["cuda"][f] != files["cpu"][f]]
+        if diff:
+            raise AssertionError(f"{name}: cuda != cpu in {diff}")
+        if evals["cuda"] != evals["cpu"] or not evals["cuda"]["n_contigs"]:
+            raise AssertionError(f"{name}: Eval cuda {evals['cuda']} != cpu "
+                                 f"{evals['cpu']}")
+        phase("small", f"{name}: cuda == cpu, byte for byte: "
+              f"{sorted(files['cuda'])}; Eval equal")
+
+
+# the JAX package's figures on the same workload (BENCH_PIPE.json)
+BENCH_PIPE_EVAL = {"extended": 49, "n_true_contigs": 49, "n50": 137_621,
+                   "average_identity": 0.9993, "mpmb": 0.0}
+
+
+def pipeline_full(results: dict, work: Path) -> None:
+    """Phase 7: run_pipeline and Eval on cuda at bench_pipeline.py's
+    workload."""
+    from aligngraph_tpu_torch import (Config, Reads, decode,
+                                      formalize_contigs, formalize_genome,
+                                      write_fasta)
+    from aligngraph_tpu_torch.evaluate.evaluate import evaluate
+    from aligngraph_tpu_torch.pipeline.driver import run_pipeline
+    from aligngraph_tpu_torch.workload import make_pipeline_workload
+
+    t0 = time.perf_counter()
+    target, ref, data, lens, contig_seqs = make_pipeline_workload()
+    work.mkdir()
+    write_fasta(work / "genome.fa", ["chr"], [decode(ref)])
+    write_fasta(work / "target.fa", ["chr"], [decode(target)])
+    write_fasta(work / "contigs.fa",
+                [f"c{i}" for i in range(len(contig_seqs))],
+                [decode(c) for c in contig_seqs])
+    n_pairs = len(lens)
+    phase("full", f"workload: genome {len(target)}, {n_pairs} pairs, "
+          f"{len(contig_seqs)} draft contigs ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    cfg = Config(read1="-", read2="-", contig=str(work / "contigs.fa"),
+                 genome=str(work / "genome.fa"), distance_low=300,
+                 distance_high=700,
+                 extended_contig=str(work / "extended.fa"),
+                 remaining_contig=str(work / "remaining.fa"),
+                 work_dir=str(work / "tmp"))
+    t0 = time.perf_counter()
+    res, launches, lanes = counted(lambda: run_pipeline(
+        cfg, reads=Reads(n_pairs, data.shape[1], data, lens),
+        contigs=formalize_contigs(cfg.contig),
+        genome=formalize_genome(cfg.genome, 1), device="cuda"))
+    wall = time.perf_counter() - t0
+    require_launched("pipeline_full", launches, results)
+    for n, r in results.items():
+        r["launches"] = launches[n]
+    st = res.stats["stage_seconds"]
+    phase("full", f"run_pipeline wall {wall:.2f} s; stages "
+          + ", ".join(f"{k} {st[k]:.2f} s" for k in
+                      ("alignment", "contig_layer", "kmer_build",
+                       "traverse", "refinement"))
+          + f"; read records {res.stats['read_alignments']}, contig "
+          f"placements {res.stats['contig_placements']}; native traversal "
+          f"{res.stats['native_traversal']}; launches {launches}; lanes "
+          f"{lanes}; kmer stats {res.stats['kmer_build']}")
+    if not res.stats["native_traversal"]:
+        raise AssertionError("the native C++ traversal did not load")
+    if not res.extended_ids:
+        raise AssertionError("no contig was extended")
+    t0 = time.perf_counter()
+    m, e_launches, e_lanes = counted(lambda: evaluate(
+        work / "target.fa", work / "extended.fa", device="cuda"))
+    eval_s = time.perf_counter() - t0
+    got = {"extended": len(res.extended_ids), **m}
+    phase("full", f"eval {eval_s:.2f} s, launches {e_launches}, lanes "
+          f"{e_lanes}; extended {len(res.extended_ids)} ("
+          f"{sum(len(s) for s in res.extended_seqs)} bases); Eval {m}")
+    phase("full", "Eval vs the JAX package's BENCH_PIPE.json: " + ", ".join(
+        f"{k} {got[k]} vs {v}" for k, v in BENCH_PIPE_EVAL.items()))
+    if not m["n_contigs"]:
+        raise AssertionError(f"Eval found no contig: {m}")
 
 
 def main() -> int:
@@ -200,11 +480,7 @@ def main() -> int:
     phase("device", f"{kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    from aligngraph_tpu_torch import Config, ReadAligner, Reads
     from aligngraph_tpu_torch.ops import _build
-    from aligngraph_tpu_torch.ops import banded_sw_cuda as k
-    from aligngraph_tpu_torch.ops.seeding import build_index
-    from aligngraph_tpu_torch.workload import make_workload
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -213,79 +489,15 @@ def main() -> int:
 
     results = {n: {"name": KERNEL_NAMES[n], "route": "cuda",
                    "source": SOURCE, "replaces": REPLACES[n], "launches": 0,
-                   "max_abs_err": 0, "ms": None, "plain_ms": None}
+                   "launches_by_path": {}, "max_abs_err": 0, "ms": None,
+                   "plain_ms": None, "shapes": {}}
                for n in ("score", "dp", "traceback")}
     check_kernels(results)
 
-    # --- main path: what bench.py runs
-    n_pairs, batch = 100_000, 32_768
-    ref, data, lens = make_workload(n_pairs=n_pairs)
-    reads = Reads(n_pairs, data.shape[1], data, lens)
-    cfg = Config(distance_low=100, distance_high=900)
-    t0 = time.perf_counter()
-    index = build_index(ref, cfg.seed_len)
-    index_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    aligner = ReadAligner.from_index(ref, index, cfg, batch_pairs=batch,
-                                     device="cuda")
-    torch.cuda.synchronize()
-    phase("main", f"index build (host) {index_s:.2f} s, to device "
-          f"{time.perf_counter() - t0:.2f} s; bucket table "
-          f"{aligner.index.bucket_lo.numel()} int32, suffix_bits "
-          f"{aligner.index.suffix_bits}")
-    t0 = time.perf_counter()
-    aligner.align(Reads(batch, data.shape[1], data[:2 * batch],
-                        lens[:batch]))
-    tail = n_pairs % batch
-    aligner.align(Reads(tail, data.shape[1], data[:2 * tail], lens[:tail]))
-    torch.cuda.synchronize()
-    phase("main", f"warm-up {time.perf_counter() - t0:.2f} s")
-
-    k.reset_launches()
-    walls, outs = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = aligner.align(reads)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        outs.append(res)
-    launches = dict(k.LAUNCHES)
-    for n, r in results.items():
-        r["launches"] = launches[n]
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: "
-                             f"{launches}")
-    for other in outs[1:]:
-        for f in FIELDS:
-            if not np.array_equal(getattr(other, f), getattr(outs[0], f)):
-                raise AssertionError(f"align is not deterministic: {f}")
-    res = outs[0]
-    aligned = 2 * len(np.unique(res.pair_id))
-    share = aligned / (2 * n_pairs)
-    med = statistics.median(walls)
-    phase("main", f"walls {[round(w, 4) for w in walls]} s; median "
-          f"{med:.4f} s, min {min(walls):.4f} s; aligned reads/s median "
-          f"{aligned / med:.1f}, best {aligned / min(walls):.1f}; aligned "
-          f"{aligned}/{2 * n_pairs} ({share:.4f}); records {res.n}; "
-          f"launches {launches}; lanes {dict(k.LANES)}")
-    if not share > 0.9:
-        raise AssertionError(f"aligned share {share:.4f} <= 0.9")
-    if res.pos_map.shape != (res.n, 2, L_MAIN):
-        raise AssertionError(f"pos_map shape {res.pos_map.shape}")
-
-    # --- the CUDA path against the plain CPU path on 2,048 pairs
-    n_chk = 2048
-    sub = Reads(n_chk, data.shape[1], data[:2 * n_chk], lens[:n_chk])
-    t0 = time.perf_counter()
-    got = aligner.align(sub)
-    cpu = ReadAligner.from_index(ref, index, cfg, batch_pairs=batch,
-                                 device="cpu").align(sub)
-    for f in FIELDS:
-        a, b = getattr(got, f), getattr(cpu, f)
-        if a.dtype != b.dtype or not np.array_equal(a, b):
-            raise AssertionError(f"cuda != cpu on field {f}")
-    phase("check", f"cuda == cpu on {n_chk} pairs, {got.n} records, every "
-          f"field ({time.perf_counter() - t0:.1f} s)")
+    read_aligner_path(results)
+    with tempfile.TemporaryDirectory() as tmp:
+        pipeline_small(results, Path(tmp) / "small")
+        pipeline_full(results, Path(tmp) / "full")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

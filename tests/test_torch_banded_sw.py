@@ -241,3 +241,79 @@ def test_auto_dispatches_cpu_tensors_to_plain():
     s_p, pm_p = tsw.banded_sw_posmap_plain(reads, rlens, wins, g0, pad=8)
     assert torch.equal(s_a, s_p) and torch.equal(pm_a, pm_p)
     assert banded_sw_cuda.LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def tile_case():
+    """Contig-aligner tile lanes at L 512, pad 16 (aligngraph_tpu_torch.
+    workload.tile_lanes: indels up to 6 bases, diagonal offsets up to
+    +-12, partial and length-0 tiles), with JAX's DP on them."""
+    from aligngraph_tpu_torch.workload import tile_lanes
+
+    tiles, tlens, wins, g0 = tile_lanes(np.random.default_rng(12), 48,
+                                        G=20_000)
+    assert (tlens == 0).any() and ((tlens > 0) & (tlens < 512)).any()
+    want = jsw.banded_sw(*_j(tiles, tlens, wins), pad=16)
+    return (tiles, tlens, wins, g0), want
+
+
+def test_banded_sw_tile_l512_equals_jax(tile_case):
+    (tiles, tlens, wins, _), want = tile_case
+    got = tsw.banded_sw(*_t(tiles, tlens, wins), pad=16)
+    assert_sw_equal(got, want)
+    # some tiles carry an indel the band has to absorb
+    gapless = tsw.gapless_diag(*_t(tiles, tlens, wins), 16)[0]
+    assert (got.score > gapless).sum() >= 5
+
+
+def test_sw_traceback_tile_l512_equals_jax(tile_case):
+    """The walk's step budget at L 512 (traceback_steps(512, 32) = 1064
+    moves) against JAX's unrolled scan."""
+    (tiles, tlens, wins, g0), want = tile_case
+    assert tsw.traceback_steps(512, 32) == 1064
+    pm_j = jsw.sw_traceback(want.tb, want.best_i, want.best_b,
+                            jnp.asarray(g0), pad=16)
+    got = tsw.banded_sw(*_t(tiles, tlens, wins), pad=16)
+    pm_t = tsw.sw_traceback(got.tb, got.best_i, got.best_b,
+                            torch.from_numpy(g0), pad=16)
+    np.testing.assert_array_equal(pm_t.numpy(), np.asarray(pm_j))
+    # full-length tiles are walked over hundreds of bases
+    assert int((pm_t >= 0).sum(dim=1).max()) > 450
+
+
+def test_posmap_auto_tile_l512_equals_jax(tile_case):
+    (tiles, tlens, wins, g0), _ = tile_case
+    s_t, pm_t = tsw.banded_sw_posmap_auto(*_t(tiles, tlens, wins, g0),
+                                          pad=16)
+    s_j, pm_j = jsw.banded_sw_posmap_auto(*_j(tiles, tlens, wins, g0),
+                                          pad=16)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    np.testing.assert_array_equal(pm_t.numpy(), np.asarray(pm_j))
+    assert (pm_t[torch.from_numpy(tlens == 0)] == -1).all()
+
+
+def test_launch_counts_survive_threads():
+    """The pipeline launches from two host threads (read and contig
+    aligners): no count update is lost."""
+    import sys
+    import threading
+
+    banded_sw_cuda.reset_launches()
+    n_threads, per_thread = 16, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            banded_sw_cuda._launch("dp", 3, lambda: 0)
+            for _ in range(per_thread)]) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert banded_sw_cuda.LAUNCHES["dp"] == n_threads * per_thread
+    assert banded_sw_cuda.LANES["dp"] == 3 * n_threads * per_thread
+    banded_sw_cuda.reset_launches()
+    assert banded_sw_cuda.LAUNCHES == {"score": 0, "dp": 0, "traceback": 0}

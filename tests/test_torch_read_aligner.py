@@ -152,12 +152,61 @@ def test_workload_equals_bench(kw):
         np.testing.assert_array_equal(g, w)
 
 
+def test_workload_pipeline_equals_bench_pipeline():
+    import bench_pipeline as bp
+
+    from aligngraph_tpu_torch.workload import make_pipeline_workload
+
+    glen, depth = 60_000, 5
+    target, ref, data, lens, contigs = make_pipeline_workload(
+        genome_len=glen, depth=depth)
+    rng = np.random.default_rng(7)             # bench_pipeline.main's order
+    w_target = rng.integers(0, 4, glen).astype(np.int8)
+    w_ref = bp.mutate_fast(rng, w_target)
+    w_data, w_lens = bp.simulate_pe_reads(
+        rng, w_target, int(depth * glen / 200), read_len=100)
+    w_contigs = bp.cut_contigs(rng, w_target)
+    assert len(w_ref) != glen and len(contigs) == len(w_contigs) > 10
+    for g, w in zip((target, ref, data, lens) + tuple(contigs),
+                    (w_target, w_ref, w_data, w_lens) + tuple(w_contigs)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_workload_simdata_equals_tests_simdata():
+    from aligngraph_tpu_torch.workload import make_simdata as port_simdata
+
+    kw = dict(seed=42, genome_len=30_000, n_pairs=3000, read_len=100,
+              insert=500, n_contigs=10, snp_rate=0.01, err_rate=0.003)
+    want = make_simdata(**kw)
+    target, reference, reads1, reads2, contigs = port_simdata(**kw)
+    pairs = ([(target, want.target), (reference, want.reference)]
+             + list(zip(reads1, want.reads1))
+             + list(zip(reads2, want.reads2))
+             + list(zip(contigs, want.contigs)))
+    assert (len(reads1), len(contigs)) == (3000, len(want.contigs))
+    assert len(reference) != len(target)       # indels were drawn
+    for g, w in pairs:
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
 def test_port_sources_import_no_jax():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
+    # modules of the JAX package that import jax, directly or through
+    # the JAX aligners
+    jax_mods = re.compile(
+        r"^\s*(from|import)\s+aligngraph_tpu\.(ops|parallel|evaluate|"
+        r"align\.(read|contig)_aligner|graph\.kmer_layer_jit|"
+        r"pipeline\.(driver|refinement|misassembly)|"
+        r"compat\.(bowtie2|blat|nucmer)_cli)\b", re.M)
     files = sorted((REPO / "aligngraph_tpu_torch").rglob("*.py"))
-    assert files
+    assert {"contig_aligner.py", "driver.py", "misassembly.py",
+            "refinement.py", "evaluate.py", "coverage.py",
+            "__main__.py", "blat_cli.py"} <= {f.name for f in files}
     for f in files + [REPO / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
+        assert not jax_mods.search(f.read_text()), f
     # the smoke script reaches the JAX package's host modules only through
     # the port's re-exports
     pkg = re.compile(r"^\s*(import|from)\s+aligngraph_tpu[\s.]", re.M)
@@ -192,9 +241,34 @@ al = aligngraph_tpu_torch.ReadAligner.build(
     device="cpu")
 res = al.align(Reads(64, data.shape[1], data, lens))
 assert res.n >= 60, res.n
+
+# the whole pipeline, with misassembly removal and Eval, on a small sim
+import os, tempfile
+from aligngraph_tpu_torch import decode, write_fasta
+from aligngraph_tpu_torch.evaluate.evaluate import evaluate
+from aligngraph_tpu_torch.pipeline.driver import run_pipeline
+from aligngraph_tpu_torch.workload import make_pipeline_workload
+target, ref, data, lens, contigs = make_pipeline_workload(
+    genome_len=30_000, depth=25)
+with tempfile.TemporaryDirectory() as d:
+    write_fasta(f"{d}/g.fa", ["chr"], [decode(ref)])
+    write_fasta(f"{d}/t.fa", ["chr"], [decode(target)])
+    write_fasta(f"{d}/c.fa", [f"c{i}" for i in range(len(contigs))],
+                [decode(c) for c in contigs])
+    for mate in (0, 1):
+        write_fasta(f"{d}/r{mate + 1}.fa", [str(i) for i in range(len(lens))],
+                    [decode(r) for r in data[mate::2]])
+    cfg = Config(read1=f"{d}/r1.fa", read2=f"{d}/r2.fa", contig=f"{d}/c.fa",
+                 genome=f"{d}/g.fa", distance_low=300, distance_high=700,
+                 extended_contig=f"{d}/e.fa", remaining_contig=f"{d}/rem.fa",
+                 work_dir=f"{d}/tmp", misassembly_removal=True)
+    out = run_pipeline(cfg, device="cpu")
+    assert out.extended_ids and os.path.exists(f"{d}/corrected_e.fa")
+    metrics = evaluate(f"{d}/t.fa", f"{d}/e.fa", device="cpu")
+    assert metrics["n_true_contigs"] >= 1, metrics
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
-print("records", res.n)
+print("records", res.n, "extended", len(out.extended_ids))
 """
 
 
