@@ -14,6 +14,9 @@ reassembly pipeline with its aligners on one device:
   align/read_aligner.py   ReadAligner (the bowtie2 replacement)
   align/contig_aligner.py ContigAligner (the BLAT/NUCMER replacement)
   parallel/coverage.py    span_coverage (misassembly removal's coverage)
+  graph/kmer_layer_jit.py the k-mer layer build on the device
+                          (build_kmer_layer_device, cfg.graph_build
+                          "device"): torch sorts, scans and scatters
   pipeline/driver.py      run_pipeline; refinement.py, misassembly.py
   evaluate/evaluate.py    evaluate (Eval-AlignGraph)
   __main__.py             python -m aligngraph_tpu_torch (the CLI)
@@ -24,14 +27,18 @@ reassembly pipeline with its aligners on one device:
                           aligngraph_tpu_torch.profile_align)
 
 Host modules that import no JAX are reused from aligngraph_tpu (config,
-io, align/types, graph, native, pipeline/checkpoint, utils) and the names a
-caller needs are re-exported here, so callers of the port need no import
+io, align/types, graph (the contig layer, the host k-mer build oracle,
+traversal), native, pipeline/checkpoint, utils) and the names a caller
+needs are re-exported here, so callers of the port need no import
 from the JAX package.  Nothing here imports jax, and nothing is built or
 loaded at import time: the CUDA kernels are compiled on first use.
 """
 
 from aligngraph_tpu.align.types import PairAlignments  # noqa: F401
-from aligngraph_tpu.config import Config  # noqa: F401
+from aligngraph_tpu.config import THRESHOLD, Config  # noqa: F401
+from aligngraph_tpu.graph.contig_layer import build_contig_layer  # noqa: F401
+from aligngraph_tpu.graph.kmer_layer import build_kmer_layer  # noqa: F401
+from aligngraph_tpu.graph.model import GraphTensors  # noqa: F401
 from aligngraph_tpu.io.fasta import decode, write_fasta  # noqa: F401
 from aligngraph_tpu.io.formalize import (  # noqa: F401
     Reads, formalize_contigs, formalize_genome)

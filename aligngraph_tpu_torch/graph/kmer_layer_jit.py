@@ -1,0 +1,602 @@
+"""Device-resident read/k-mer-layer graph build in torch: the port of
+aligngraph_tpu/graph/kmer_layer_jit.py (C18/C19, `updateGenomeWithRead` +
+`updateKMer`, AlignGraph.cpp:1635-1870, 1353-1624).
+
+Same phases and bit-identical results as the host oracle
+(aligngraph_tpu/graph/kmer_layer.py) and the JAX device build (held equal
+in tests/test_torch_kmer_layer.py), as eager torch ops on `device`:
+
+  - rows are COMPACT, not dense + masked: boolean masks and `nonzero`
+    keep the valid tuples, combo rows and edge candidates in the order the
+    JAX build's dense concatenations give them, so every stable sort
+    breaks ties as it does there.  No capacity bounds the bridge rows,
+    groups or edges, so no chunk ever overflows and nothing is replayed
+    through the host oracle.
+  - multi-operand stable sorts become one or a few stable `torch.sort`
+    passes over int64 words that pack the keys by their runtime ranges
+    (`_lex_order`, after kmer_layer._pack_keys).
+  - the first-fit merge runs the same K_KM+2 assign/create rounds with no
+    host sync inside; `mode="drop"` scatters go to one sentinel row past
+    the last position, which the state carries and `_state_to_graph`
+    drops.
+  - the state is int32 throughout: uint32 arrays travel as their int32
+    view (NONE32 is -1 there), so the JAX build's enc/unpk are identities.
+
+A chunk's ops sync with the host where a compaction sizes its output (a
+handful per chunk); the graph state stays on the device across chunks and
+returns to the GraphTensors once, at the end.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from aligngraph_tpu.config import EP
+from aligngraph_tpu.graph.kmer_layer import (
+    CPM, CPO, KmerBuildStats, normalize_records,
+)
+from aligngraph_tpu.graph.model import E_ED, K_KM, NONE32, GraphTensors
+
+I32 = torch.int32
+I64 = torch.int64
+NC = CPO * CPM
+# the row fields phase 3 needs, and its group-key fields (most-major first)
+ROW_FIELDS = ("pos", "arrival", "weight", "contig", "coff", "contig0",
+              "coff0", "gpos0", "s_pack", "s_len", "s0")
+GROUP_KEYS = ("pos", "contig", "coff", "contig0", "coff0", "gpos0")
+
+
+def _lex_order(keys):
+    """Stable lexicographic order of rows by `keys` (integer tensors of one
+    length, most-major first): ties keep row order, as a multi-operand
+    stable `lax.sort` does.  Each key is biased by its minimum and the keys
+    are bit-packed into as few non-negative int64 words as their runtime
+    ranges allow; constant keys drop out.  The words are sorted least-major
+    first with stable sorts."""
+    n = keys[0].numel()
+    dev = keys[0].device
+    if n == 0:
+        return torch.zeros(0, dtype=I64, device=dev)
+    lo_hi = torch.stack([torch.stack([k.min().to(I64), k.max().to(I64)])
+                         for k in keys]).tolist()
+    words, cur, used = [], None, 0
+    for key, (lo, hi) in zip(keys, lo_hi):
+        b = (hi - lo).bit_length()
+        if b == 0:
+            continue
+        v = key.to(I64) - lo
+        if cur is None or used + b > 63:
+            if cur is not None:
+                words.append(cur)
+            cur, used = v, b
+        else:
+            cur = (cur << b) | v
+            used += b
+    if cur is not None:
+        words.append(cur)
+    order = None
+    for w in reversed(words):
+        if order is None:
+            order = torch.argsort(w, stable=True)
+        else:
+            order = order[torch.argsort(w[order], stable=True)]
+    return order if order is not None else torch.arange(n, device=dev)
+
+
+def _run_starts(*cols):
+    """Bool mask of rows whose value in any of `cols` differs from the
+    row before (row 0 always starts a run)."""
+    new = torch.ones(cols[0].numel(), dtype=torch.bool, device=cols[0].device)
+    if cols[0].numel() > 1:
+        diff = torch.zeros_like(new[1:])
+        for c in cols:
+            diff |= c[1:] != c[:-1]
+        new[1:] = diff
+    return new
+
+
+# ----------------------------------------------------------------------
+# phase 1: tuple emission (oracle emit_tuples semantics, JAX :53)
+# ----------------------------------------------------------------------
+
+def _emit_tuples(p1, p2, s1, lens, keep, k: int):
+    """The valid tuples of one chunk, in the order of the JAX build's
+    concatenation (stream A cells, stream B cells, stream C bridges, each
+    record-major): dict of [T] int32 tensors, `arrival` int64.
+
+    p1, p2: [M, L] int32 part-local positions (-1 unaligned); s1 [M, L]
+    int8; lens [M] int32; keep [M] bool."""
+    M, L = p1.shape
+    Lk = L - k
+    dev = p1.device
+    i_idx = torch.arange(Lk, dtype=I32, device=dev)[None, :]
+    cur = p1[:, :Lk]
+    nxt = p1[:, 1:Lk + 1]
+    mc = p2[:, :Lk]
+    mn = p2[:, 1:Lk + 1]
+    in_range = keep[:, None] & (i_idx < (lens - k)[:, None]) & (cur >= 0)
+
+    # next aligned index after i+1 (cummin over the reversed row)
+    big = L + 1
+    rev = torch.where(p1.flip(1) >= 0,
+                      torch.arange(L - 1, -1, -1, dtype=I32,
+                                   device=dev)[None, :], big)
+    na = torch.cummin(rev, dim=1).values.flip(1)
+    na = torch.cat([na, torch.full((M, 2), big, dtype=I32, device=dev)], 1)
+    npp = na[:, 2:2 + Lk]
+    npp_ok = npp < L
+    nppc = npp.clamp(0, L - 1).long()
+    tgt = torch.gather(p1, 1, nppc)
+    mate_tgt = torch.gather(p2, 1, nppc)
+
+    ordinary = in_range & (nxt == cur + 1)
+    deletion = in_range & (nxt >= 0) & (nxt != cur + 1)
+    insertion = in_range & (nxt < 0) & npp_ok
+    ins_a1 = insertion & (tgt == cur + 1)
+    ins_a2 = insertion & (tgt != cur + 1)
+
+    # packed k-mers at every base: 3-bit codes, anything outside 0-4 is 4
+    # (the oracle's uint32 `_pack`); 3k <= 30 bits fit int32
+    code = s1.to(I32)
+    code = torch.where((code < 0) | (code > 4), 4, code)
+    pk = torch.zeros((M, Lk + 1), dtype=I32, device=dev)
+    for i in range(k):
+        pk = (pk << 3) | code[:, i:i + Lk + 1]
+    packs = torch.cat([pk, torch.zeros((M, k - 1), dtype=I32, device=dev)],
+                      1)
+
+    rec = torch.arange(M, dtype=I64, device=dev)[:, None]
+    cell_arr = (rec * L + i_idx) * 4                 # [M, Lk] int64
+
+    ns_len_np = torch.minimum(npp + k, lens[:, None]) - npp
+    packs_np = torch.gather(packs, 1, nppc)
+    s0_np = torch.gather(s1, 1, nppc).to(I32)
+    s0 = s1[:, :Lk].to(I32)
+    ns0 = s1[:, 1:Lk + 1].to(I32)
+
+    def full(v):
+        return torch.full((M, Lk), v, dtype=I32, device=dev)
+
+    # stream A: one tuple per cell (ordinary|deletion / ins_a1 / ins_a2(i))
+    m_od = ordinary | deletion
+    sA = dict(
+        cur=cur,
+        nxt=torch.where(ordinary, cur + 1,
+                        torch.where(deletion, nxt, cur + 1)),
+        mate_cur=mc,
+        mate_nxt=torch.where(m_od, mn, torch.where(ins_a1, mate_tgt, -1)),
+        s_pack=packs[:, :Lk],
+        s_len=full(k),
+        ns_pack=torch.where(m_od, packs[:, 1:Lk + 1],
+                            torch.where(ins_a1, packs_np, 0)),
+        ns_len=torch.where(m_od, k, torch.where(ins_a1, ns_len_np, 0)),
+        s0=s0,
+        ns0=torch.where(m_od, ns0, torch.where(ins_a1, s0_np, 4)),
+        arrival=cell_arr,
+    )
+    # stream B: ins_a2 case (iii): (target-1) -> target
+    sB = dict(
+        cur=tgt - 1, nxt=tgt, mate_cur=full(-1), mate_nxt=mate_tgt,
+        s_pack=full(0), s_len=full(0), ns_pack=packs_np, ns_len=ns_len_np,
+        s0=full(4), ns0=s0_np, arrival=cell_arr + 2,
+    )
+    a_idx = (m_od | ins_a1 | ins_a2).reshape(-1).nonzero().squeeze(1)
+    b_idx = ins_a2.reshape(-1).nonzero().squeeze(1)
+
+    # stream C: bridge tuples through the intermediate genome positions,
+    # cell-major, then by position within the cell
+    span = torch.where(ins_a2, (tgt - cur - 2).clamp(min=0), 0).reshape(-1)
+    cells = b_idx[span[b_idx] > 0]
+    counts = span[cells].long()
+    bcell = torch.repeat_interleave(cells, counts)
+    first = torch.cumsum(counts, 0) - counts
+    within = torch.arange(bcell.numel(), dtype=I64, device=dev) - \
+        torch.repeat_interleave(first, counts)
+    bc = (cur.reshape(-1)[bcell] + 1 + within).to(I32)
+    nb = bc.numel()
+
+    def cfull(v):
+        return torch.full((nb,), v, dtype=I32, device=dev)
+
+    sC = dict(
+        cur=bc, nxt=bc + 1, mate_cur=cfull(-1), mate_nxt=cfull(-1),
+        s_pack=cfull(0), s_len=cfull(0), ns_pack=cfull(0), ns_len=cfull(0),
+        s0=cfull(4), ns0=cfull(4), arrival=cell_arr.reshape(-1)[bcell] + 1,
+    )
+    out = {}
+    for key in sA:
+        out[key] = torch.cat([sA[key].reshape(-1)[a_idx],
+                              sB[key].reshape(-1)[b_idx], sC[key]])
+        if key != "arrival":
+            out[key] = out[key].to(I32)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 2: anchor-combo expansion (JAX :168)
+# ----------------------------------------------------------------------
+
+def _expand(cmpack, n_pos: int, pos, mate, arrival_t, kind: int,
+            s_pack, s_len, s0):
+    """The valid [CPO x CPM] anchor-combo rows of the tuples for one
+    endpoint kind, combo-major then tuple (the JAX build's order).
+
+    cmpack [n_pos, 5] int32 = (cm_cnt, contig0, contig1, coff0, coff1).
+    Returns (rows dict of [R] tensors, valid [NC, T] bool grid)."""
+    T = pos.numel()
+    dev = pos.device
+    own = cmpack[pos.clamp(0, n_pos - 1).long()]           # [T, 5]
+    mat = cmpack[mate.clamp(0, n_pos - 1).long()]
+    c_cm = own[:, 0].clamp(max=CPO)
+    m_cm = torch.where(mate >= 0, mat[:, 0].clamp(max=CPM), 0)
+    combo = torch.arange(NC, device=dev)[:, None]
+    valid = ((combo // CPM < c_cm.clamp(min=1)[None, :])
+             & (combo % CPM < m_cm.clamp(min=1)[None, :]))     # [NC, T]
+    flat = valid.reshape(-1).nonzero().squeeze(1)
+    c, t = (flat // T, flat % T) if T else (flat, flat)
+    jj, jj0 = c // CPM, c % CPM
+    own_t, mat_t = own[t], mat[t]
+    has_own = (c_cm[t] > 0)
+    has_mate = (m_cm[t] > 0)
+    mate_t = mate[t]
+
+    def col(a, j):
+        return torch.gather(a, 1, j[:, None]).squeeze(1)
+
+    rows = dict(
+        pos=pos[t],
+        arrival=arrival_t[t] * 2 + kind,
+        weight=torch.full((t.numel(),), 1 - kind, dtype=I32, device=dev),
+        contig=torch.where(has_own, col(own_t, 1 + jj), -1),
+        coff=torch.where(has_own, col(own_t, 3 + jj), -1),
+        contig0=torch.where(has_mate, col(mat_t, 1 + jj0), -1),
+        coff0=torch.where(has_mate, col(mat_t, 3 + jj0), -1),
+        gpos0=torch.where(mate_t >= 0, mate_t, -1),
+        s_pack=s_pack[t], s_len=s_len[t], s0=s0[t],
+    )
+    return rows, valid
+
+
+def _compat(gc, gf, gc0, gf0, gg0, sc, sf, sc0, sf0, sg0, win):
+    """Vectorized `compatible()` (kmer_layer._compat_vec semantics)."""
+    bad1 = (gc >= 0) & (sc >= 0) & (gc == sc) & ((gf - sf).abs() > 5 * EP)
+    bad2 = (gc0 >= 0) & (sc0 >= 0) & (gc0 == sc0) & \
+        ((gf0 - sf0).abs() > win)
+    bad3 = (gg0 >= 0) & (sg0 >= 0) & ((gg0 - sg0).abs() > win)
+    return ~(bad1 | bad2 | bad3)
+
+
+# ----------------------------------------------------------------------
+# phase 3: grouping by the exact anchor signature (JAX :239-299)
+# ----------------------------------------------------------------------
+
+def _group(rows):
+    """Sort rows by (pos, anchor signature, arrival) and collapse equal
+    signatures into groups.  Returns (order: sorted row -> row, gid of
+    each sorted row, groups dict: the first-arrival row's fields plus
+    summed weight and votes [G, 5])."""
+    order = _lex_order([rows[f] for f in GROUP_KEYS] + [rows["arrival"]])
+    newg = _run_starts(*[rows[f][order] for f in GROUP_KEYS])
+    gid = torch.cumsum(newg, 0) - 1
+    rep = order[newg.nonzero().squeeze(1)]          # first-arrival row
+    G = rep.numel()
+    grp = {f: rows[f][rep] for f in GROUP_KEYS + ("arrival", "s_pack",
+                                                   "s_len")}
+    w = rows["weight"][order]
+    grp["weight"] = torch.zeros(G, dtype=I32, device=w.device) \
+        .index_add_(0, gid, w)
+    s0 = rows["s0"][order].long()
+    voters = ((rows["s_len"][order] > 0) & (w > 0) & (s0 >= 0) & (s0 < 5))
+    grp["votes"] = torch.zeros(G * 5, dtype=I32, device=w.device) \
+        .index_add_(0, gid * 5 + s0.clamp(0, 4), voters.to(I32)) \
+        .view(G, 5)
+    return order, gid, grp
+
+
+# ----------------------------------------------------------------------
+# phase 4: first-fit merge, assign/create rounds (JAX :301-404)
+# ----------------------------------------------------------------------
+
+def _rounds(state, grp, n_pos: int, win: int):
+    """Merge the groups into the slot state in place; returns (slot of
+    each group, dropped_slots as a device scalar).  Row n_pos of every
+    state array is the sentinel that the masked slot writes go to."""
+    G = grp["pos"].numel()
+    dev = grp["pos"].device
+    gsort = _lex_order([grp["pos"], grp["arrival"]])
+    pos_s = grp["pos"][gsort]
+    gidx = torch.arange(G, device=dev)
+    run_start = torch.cummax(torch.where(_run_starts(pos_s), gidx, 0),
+                             0).values
+    sgc, sgf, sgc0, sgf0, sgg0, sgw, sgv, sgsp, sgsl = (
+        grp[f][gsort] for f in ("contig", "coff", "contig0", "coff0",
+                                "gpos0", "weight", "votes", "s_pack",
+                                "s_len"))
+    posc = pos_s.clamp(0, n_pos - 1).long()
+    contig, coff, contig0, coff0, mate = (
+        state[f] for f in ("km_contig", "km_coff", "km_contig0", "km_coff0",
+                           "km_mate"))
+    cov, votes, spk, sln, cnt = (
+        state[f] for f in ("km_cov", "km_votes", "km_s", "km_slen",
+                           "km_cnt"))
+    pending = torch.ones(G, dtype=torch.bool, device=dev)
+    slot_s = torch.full((G,), -1, dtype=I64, device=dev)
+    dslots = torch.zeros((), dtype=I64, device=dev)
+    slots = torch.arange(K_KM, device=dev)[None, :]
+    cols = (sgc[:, None], sgf[:, None], sgc0[:, None], sgf0[:, None],
+            sgg0[:, None])
+    for _ in range(K_KM + 2):
+        # (a) every pending group to its first compatible slot
+        kc = cnt[posc].long()
+        comp = (slots < kc[:, None]) & _compat(
+            *cols, contig[posc], coff[posc], contig0[posc], coff0[posc],
+            mate[posc], win)                                 # [G, K]
+        has = comp.any(1)
+        first = torch.zeros(G, dtype=I64, device=dev)
+        for s in range(K_KM - 1, -1, -1):
+            first = torch.where(comp[:, s], s, first)
+        assign = pending & has
+        # adds of 0 for the groups not assigned keep every index at its
+        # own position: piling them onto the sentinel would serialise
+        cell = posc * K_KM + first
+        cov.view(-1).index_add_(0, cell, torch.where(assign, sgw, 0))
+        votes.view(-1, 5).index_add_(
+            0, cell, torch.where(assign[:, None], sgv, 0))
+        slot_s = torch.where(assign, first, slot_s)
+        pending = pending & ~has
+        # drop all pending at capped positions
+        at_cap = kc >= K_KM
+        dslots += (pending & at_cap).sum()
+        pending = pending & ~at_cap
+        # (b) the earliest pending group per position creates one slot
+        S = torch.cumsum(pending, 0)
+        base = S[run_start] - pending[run_start].long()
+        creator = pending & ((S - base) == 1)
+        cpos = torch.where(creator, posc, n_pos)
+        acs = kc.clamp(0, K_KM - 1)
+        for arr, val in ((contig, sgc), (coff, sgf), (contig0, sgc0),
+                         (coff0, sgf0), (mate, sgg0), (spk, sgsp),
+                         (sln, sgsl)):
+            arr.index_put_((cpos, acs), val)
+        cov.index_put_((cpos, acs), torch.where(creator, sgw, 0))
+        votes.index_put_((cpos, acs), torch.where(creator[:, None], sgv, 0))
+        cnt.index_add_(0, posc, creator.to(I32))
+        slot_s = torch.where(creator, kc, slot_s)
+        pending = pending & ~creator
+    g_slot = torch.empty(G, dtype=I64, device=dev)
+    g_slot[gsort] = slot_s
+    return g_slot, dslots
+
+
+# ----------------------------------------------------------------------
+# phase 5: edges (JAX :413-503)
+# ----------------------------------------------------------------------
+
+def _edges(state, tup, valid1, valid2, slot1, slot2, n_pos: int, win: int):
+    """Append this chunk's new edges to the state in place; returns
+    dropped_edges as a device scalar.
+
+    valid1/valid2: [NC, T] combo grids of the k1/k2 rows; slot1/slot2:
+    [NC, T] slot of each valid combo row (-1 elsewhere)."""
+    T = tup["cur"].numel()
+    dev = tup["cur"].device
+    rank_a = torch.cumsum(valid1, 0) - 1
+    rank_b = torch.cumsum(valid2, 0) - 1
+    ev = (slot1 >= 0)[:, None, :] & (slot2 >= 0)[None, :, :]  # [a, b, T]
+    flat = ev.reshape(-1).nonzero().squeeze(1)
+    ab, t = (flat // T, flat % T) if T else (flat, flat)
+    a, b = ab // NC, ab % NC
+    sp = tup["cur"][t].long()
+    dp = tup["nxt"][t].long()
+    ss = slot1[a, t]
+    ds = slot2[b, t]
+    ea = tup["arrival"][t] * (NC * NC) + rank_a[a, t] * NC + rank_b[b, t]
+
+    # dedup by (sp, ss, dp, ds), keeping the first arrival
+    o = _lex_order([sp, ss, dp, ds, ea])
+    sp, ss, dp, ds, ea = sp[o], ss[o], dp[o], ds[o], ea[o]
+    u = _run_starts(sp, ss, dp, ds).nonzero().squeeze(1)
+    sp, ss, dp, ds, ea = sp[u], ss[u], dp[u], ds[u], ea[u]
+
+    # the contig-anchor edge gate between the two slot k-mers (no
+    # genome-anchor clause, AlignGraph.cpp:1600-1615), then the
+    # existing-edge check against prior chunks
+    spc = sp.clamp(0, n_pos - 1)
+    dpc = dp.clamp(0, n_pos - 1)
+    anchors = ("km_contig", "km_coff", "km_contig0", "km_coff0")
+    none = torch.full_like(sp, -1)
+    ok = _compat(*(state[f][spc, ss] for f in anchors), none,
+                 *(state[f][dpc, ds] for f in anchors), none, win)
+    ed_cnt, ed_pos, ed_item = (state[f] for f in ("ed_cnt", "ed_pos",
+                                                  "ed_item"))
+    have = ed_cnt[spc, ss]
+    for e in range(E_ED):
+        ok &= ~((e < have) & (ed_pos[spc, ss, e] == dp)
+                & (ed_item[spc, ss, e] == ds))
+    keep = ok.nonzero().squeeze(1)
+    sp, ss, dp, ds, ea = sp[keep], ss[keep], dp[keep], ds[keep], ea[keep]
+
+    # append in (sp, ss, arrival) order with per-(pos, slot) run ranks
+    o = _lex_order([sp, ss, ea])
+    sp, ss, dp, ds = sp[o], ss[o], dp[o], ds[o]
+    idx = torch.arange(sp.numel(), device=dev)
+    rrank = idx - torch.cummax(torch.where(_run_starts(sp, ss), idx, 0),
+                               0).values
+    tgt = ed_cnt[sp.clamp(0, n_pos - 1), ss].long() + rrank
+    can = tgt < E_ED
+    spf = torch.where(can, sp, n_pos)
+    tgtc = tgt.clamp(0, E_ED - 1)
+    ed_pos.index_put_((spf, ss, tgtc), dp.to(I32))
+    ed_item.index_put_((spf, ss, tgtc), ds.to(I32))
+    ed_cnt.view(-1).index_add_(0, sp.clamp(0, n_pos - 1) * K_KM + ss,
+                               can.to(I32))
+    return (~can).sum()
+
+
+# ----------------------------------------------------------------------
+# the per-chunk update
+# ----------------------------------------------------------------------
+
+def _chunk_update(state, cmpack, p1, p2, s1, lens, keep, *, k: int,
+                  win: int, n_pos: int, mark=None):
+    """One chunk of records into the device state (in place).  Returns
+    (tuples, rows, groups) as ints and (dropped_slots, dropped_edges) as
+    device scalars.  mark(name), when given, is called after each phase
+    ("emit": emission and expansion, "group", "rounds", "edges")."""
+    tup = _emit_tuples(p1, p2, s1, lens, keep, k)
+    k1, valid1 = _expand(cmpack, n_pos, tup["cur"], tup["mate_cur"],
+                         tup["arrival"], 0, tup["s_pack"], tup["s_len"],
+                         tup["s0"])
+    k2, valid2 = _expand(cmpack, n_pos, tup["nxt"], tup["mate_nxt"],
+                         tup["arrival"], 1, tup["ns_pack"], tup["ns_len"],
+                         tup["ns0"])
+    rows = {f: torch.cat([k1[f], k2[f]]) for f in ROW_FIELDS}
+    R1 = k1["pos"].numel()
+    if mark:
+        mark("emit")
+
+    order, gid, grp = _group(rows)
+    if mark:
+        mark("group")
+
+    g_slot, dslots = _rounds(state, grp, n_pos, win)
+    if mark:
+        mark("rounds")
+
+    # slot of every row, spread back onto the [NC, T] combo grids
+    row_slot = torch.empty_like(gid)
+    row_slot[order] = g_slot[gid]
+    slot1 = torch.full(valid1.shape, -1, dtype=I64, device=gid.device)
+    slot2 = torch.full(valid2.shape, -1, dtype=I64, device=gid.device)
+    slot1[valid1] = row_slot[:R1]
+    slot2[valid2] = row_slot[R1:]
+    dedges = _edges(state, tup, valid1, valid2, slot1, slot2, n_pos, win)
+    if mark:
+        mark("edges")
+    return (tup["cur"].numel(), rows["pos"].numel(), grp["pos"].numel(),
+            dslots, dedges)
+
+
+# ----------------------------------------------------------------------
+# host driver
+# ----------------------------------------------------------------------
+
+STATE_FIELDS = ("km_contig", "km_coff", "km_contig0", "km_coff0", "km_mate",
+                "km_cov", "km_votes", "km_s", "km_slen", "km_cnt", "ed_cnt",
+                "ed_pos", "ed_item")
+
+
+def _state_from_graph(g: GraphTensors, device):
+    """The k-mer and edge arrays of g as int32 tensors on `device` (uint32
+    arrays through their int32 view; narrower ones cross at their own
+    width and widen there), each with one sentinel row appended at index
+    n_pos for masked scatters."""
+    out = {}
+    for f in STATE_FIELDS:
+        a = getattr(g, f)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        t = torch.zeros((a.shape[0] + 1,) + a.shape[1:], dtype=I32,
+                        device=device)
+        t[:-1] = torch.from_numpy(a).to(device)
+        out[f] = t
+    return out
+
+
+def _state_to_graph(state, g: GraphTensors) -> None:
+    """Write the state back into g's arrays at their own dtypes, without
+    the sentinel row."""
+    for f in STATE_FIELDS:
+        old = getattr(g, f)
+        if old.dtype == np.uint32:
+            setattr(g, f, state[f][:-1].cpu().numpy().view(np.uint32))
+        else:
+            dt = torch.from_numpy(old[:0]).dtype
+            setattr(g, f, state[f][:-1].to(dt).cpu().numpy())
+
+
+def _cmpack(g: GraphTensors, device) -> torch.Tensor:
+    """[n_pos, 5] int32 (cm_cnt, contig0, contig1, coff0, coff1), -1 for
+    NONE32, on `device`."""
+    def anchors(a):
+        return np.where(a[:, :CPO] == NONE32, -1,
+                        a[:, :CPO].astype(np.int64)).astype(np.int32)
+
+    return torch.from_numpy(np.concatenate([
+        g.cm_cnt[:, None].astype(np.int32), anchors(g.cm_contig),
+        anchors(g.cm_coff)], axis=1)).to(device)
+
+
+def _chunk_inputs(p1, p2, s1, lens, keep, s: int, e: int, device):
+    """Records [s, e) of normalize_records' arrays as the tensors
+    `_chunk_update` takes, on `device`."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (p1[s:e].astype(np.int32), p2[s:e].astype(np.int32),
+                      s1[s:e], lens[s:e].astype(np.int32), keep[s:e])]
+
+
+def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
+                            insert_variation: int, part_offset: int = 0,
+                            chunk_records: int = 16384,
+                            stats: Optional[KmerBuildStats] = None, *,
+                            device,
+                            mark: Optional[Callable[[str], None]] = None
+                            ) -> KmerBuildStats:
+    """Drop-in for kmer_layer.build_kmer_layer with phases 1-5 on
+    `device` ("cuda" on the card; "cpu" runs the same ops on the host).
+
+    chunk_records matches the host oracle's default: KmerBuildStats
+    (groups, dropped_*) depend on the chunk boundaries, so the pipeline's
+    kmer stats stay comparable when toggling cfg.graph_build.
+
+    mark(name), when given, is called after each stage of the build:
+    "normalize" (phase 0 on the host), "h2d" (the state, then each
+    chunk's inputs, on the device), the phases of `_chunk_update`, and
+    "d2h" (the state back in g).  chip_smoke.py records a CUDA event there
+    to split the build's time.
+    """
+    if k > 10:
+        raise ValueError(f"k-mer size {k} > 10: the 3-bit k-mer packing "
+                         f"holds at most 10 bases")
+    st = stats or KmerBuildStats()
+    if pairs.n == 0:
+        return st
+    dev = torch.device(device)
+    p1, p2, s1, lens, keep = normalize_records(
+        pairs, reads, k, part_offset, g.part_len)
+    if mark:
+        mark("normalize")
+    if p1.shape[1] - k <= 0:
+        return st
+    # state arrays span part_len + overflow_cap (record positions are
+    # always < part_len, but the array axes must agree)
+    n_pos = int(g.km_cnt.shape[0])
+    assert n_pos < (1 << 30)
+    cmpack = _cmpack(g, dev)
+    state = _state_from_graph(g, dev)
+    if mark:
+        mark("h2d")
+    win = 2 * insert_variation + 5 * EP
+    dropped = torch.zeros(2, dtype=I64, device=dev)
+    for s in range(0, pairs.n, chunk_records):
+        e = min(s + chunk_records, pairs.n)
+        args = _chunk_inputs(p1, p2, s1, lens, keep, s, e, dev)
+        if mark:
+            mark("h2d")
+        tuples, rows, groups, dslots, dedges = _chunk_update(
+            state, cmpack, *args, k=k, win=win, n_pos=n_pos, mark=mark)
+        st.tuples += tuples
+        st.rows += rows
+        st.groups += groups
+        dropped[0] += dslots
+        dropped[1] += dedges
+    _state_to_graph(state, g)
+    dslots, dedges = dropped.tolist()
+    st.dropped_slots += dslots
+    st.dropped_edges += dedges
+    if mark:
+        mark("d2h")
+    return st

@@ -14,8 +14,10 @@ Checkpointing (C15) is stage+part granular via pipeline/checkpoint.py.
 
 PyTorch port: a copy of aligngraph_tpu/pipeline/driver.py (which imports
 the JAX aligners) with the port's ReadAligner and ContigAligner on
-`device`, sharing one seed index built on the host.  The graph build,
-traversal, checkpointing and stage files are the JAX package's host
+`device`, sharing one seed index built on the host, and with
+cfg.graph_build="device" the port's k-mer layer build
+(graph/kmer_layer_jit.py) on `device`.  The contig layer, the host k-mer
+build, traversal, checkpointing and stage files are the JAX package's host
 modules, reused by import; none of them imports jax.
 """
 
@@ -43,6 +45,7 @@ from aligngraph_tpu.io.formalize import (Contigs, Genome, Reads,
 from aligngraph_tpu.utils.log import stage_banner, get_logger, log_memory
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
 from aligngraph_tpu_torch.align.read_aligner import ReadAligner
+from aligngraph_tpu_torch.graph.kmer_layer_jit import build_kmer_layer_device
 from aligngraph_tpu_torch.ops.seeding import build_index
 from aligngraph_tpu_torch.pipeline.refinement import RefinementResult, refine
 
@@ -142,13 +145,9 @@ def run_pipeline(cfg: Config,
                  contigs: Optional[Contigs] = None,
                  genome: Optional[Genome] = None,
                  checkpoint=None, *, device) -> PipelineResult:
-    """The whole reassembly; the aligners run on `device` ("cuda" launches
-    the hand-written kernels, "cpu" runs their plain versions)."""
-    if cfg.graph_build == "device":
-        raise NotImplementedError(
-            "graph_build='device' (the device k-mer graph build) is not "
-            "ported yet: ROADMAP.md, modules to port, the device k-mer "
-            "build item")
+    """The whole reassembly; the aligners, and the k-mer layer build when
+    cfg.graph_build is "device", run on `device` ("cuda" launches the
+    hand-written kernels, "cpu" runs their plain versions)."""
     t0 = time.time()
     stats: Dict = {}
 
@@ -301,8 +300,14 @@ def run_pipeline(cfg: Config,
         rmask = ((ts[:, 0] >= lo) & (ts[:, 0] < hi)
                  & (ts[:, 1] >= lo) & (ts[:, 1] < hi))
         part_rali = _subset_pairs(rali, rmask)
-        build_kmer_layer(g, part_rali, reads, cfg.k_mer,
-                         cfg.insert_variation, part_offset=lo, stats=kstats)
+        if cfg.graph_build == "device":
+            build_kmer_layer_device(g, part_rali, reads, cfg.k_mer,
+                                    cfg.insert_variation, part_offset=lo,
+                                    stats=kstats, device=device)
+        else:
+            build_kmer_layer(g, part_rali, reads, cfg.k_mer,
+                             cfg.insert_variation, part_offset=lo,
+                             stats=kstats)
         stage_s["kmer_build"] += time.time() - tst
         log.info("  kmer build: %.1fs (%d records)",
                  time.time() - tst, part_rali.n)

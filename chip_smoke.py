@@ -25,13 +25,25 @@ Phases, one line each, any failure raises (non-zero exit):
      --iterativeMap: the extended, remaining and corrected FASTA and every
      tmp/ stage file byte-equal, every kernel launched on "cuda" in the
      first; Eval of the extended contigs on both devices equal.
-  7. pipeline full: run_pipeline on "cuda" on bench_pipeline.py's
-     workload (seed 7, 4.6 Mb, depth 25 = 575,000 pairs of 100 bp, ~1,424
-     draft contigs, distance 300-700, one part), then Eval of the extended
-     contigs against the target on "cuda": per-stage seconds, launches and
-     lanes per kernel, Eval beside the JAX package's BENCH_PIPE.json
-     figures (reported, not asserted).  Fails if no contig is extended or
-     the native C++ traversal did not load.
+  kmer: the device k-mer layer build on bench_pipeline.py's workload
+     (seed 7, 4.6 Mb, depth 25 = 575,000 pairs of 100 bp, 1,424 draft
+     contigs, distance 300-700, one part): both aligners on "cuda" as the
+     driver runs them, the contig layer, then the first 4 chunks of
+     16,384 accepted records through the host oracle (build_kmer_layer,
+     numpy) and through build_kmer_layer_device on "cuda": every k-mer
+     and edge array and every build statistic equal; both walls and the
+     peak device memory.  Then the device build over all accepted
+     records (stats equal to HOST_KMER_STATS), split by CUDA events
+     (normalize = host phase 0, h2d, emit = emission and expansion, group,
+     rounds, edges, d2h), and one chunk's wall, device busy time and top
+     10 CUDA ops under torch.profiler.
+  7. pipeline full: run_pipeline on "cuda" with graph_build="device" on
+     the same workload, then Eval of the extended contigs against the
+     target on "cuda": per-stage seconds, launches and lanes per kernel.
+     The k-mer build statistics must equal the host build's on this
+     workload (HOST_KMER_STATS) and Eval the JAX package's BENCH_PIPE.json
+     (identity to 4 places); fails too if the native C++ traversal did
+     not load.
 Then a JSON line of per-kernel results, nvidia-smi's line, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -403,16 +415,25 @@ def pipeline_small(results: dict, work: Path) -> None:
 # the JAX package's figures on the same workload (BENCH_PIPE.json)
 BENCH_PIPE_EVAL = {"extended": 49, "n_true_contigs": 49, "n50": 137_621,
                    "average_identity": 0.9993, "mpmb": 0.0}
+# the host k-mer build's statistics on the same workload at the default
+# chunk of 16,384 records (BENCH_PIPE.json; the port's host build gave the
+# same on the card)
+HOST_KMER_STATS = {"tuples": 54_559_637, "rows": 109_132_827,
+                  "groups": 55_053_799, "dropped_rank": 0,
+                  "dropped_slots": 0, "dropped_edges": 0}
+KM_FIELDS = ("km_cnt", "km_contig", "km_coff", "km_contig0", "km_coff0",
+             "km_mate", "km_cov", "km_votes", "km_s", "km_slen", "ed_cnt",
+             "ed_pos", "ed_item")
+KMER_CHUNK = 16_384
+KMER_CHUNKS = 4
 
 
-def pipeline_full(results: dict, work: Path) -> None:
-    """Phase 7: run_pipeline and Eval on cuda at bench_pipeline.py's
-    workload."""
+def full_workload(work: Path) -> dict:
+    """bench_pipeline.py's workload as FASTA files in work, its config
+    and its formalized inputs."""
     from aligngraph_tpu_torch import (Config, Reads, decode,
                                       formalize_contigs, formalize_genome,
                                       write_fasta)
-    from aligngraph_tpu_torch.evaluate.evaluate import evaluate
-    from aligngraph_tpu_torch.pipeline.driver import run_pipeline
     from aligngraph_tpu_torch.workload import make_pipeline_workload
 
     t0 = time.perf_counter()
@@ -424,20 +445,176 @@ def pipeline_full(results: dict, work: Path) -> None:
                 [f"c{i}" for i in range(len(contig_seqs))],
                 [decode(c) for c in contig_seqs])
     n_pairs = len(lens)
-    phase("full", f"workload: genome {len(target)}, {n_pairs} pairs, "
-          f"{len(contig_seqs)} draft contigs ({time.perf_counter() - t0:.1f}"
-          f" s)")
     cfg = Config(read1="-", read2="-", contig=str(work / "contigs.fa"),
                  genome=str(work / "genome.fa"), distance_low=300,
                  distance_high=700,
                  extended_contig=str(work / "extended.fa"),
                  remaining_contig=str(work / "remaining.fa"),
                  work_dir=str(work / "tmp"))
+    wl = dict(work=work, cfg=cfg,
+              reads=Reads(n_pairs, data.shape[1], data, lens),
+              contigs=formalize_contigs(cfg.contig),
+              genome=formalize_genome(cfg.genome, 1))
+    phase("full", f"workload: genome {len(target)}, {n_pairs} pairs, "
+          f"{len(contig_seqs)} draft contigs ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    return wl
+
+
+def kmer_build(wl: dict) -> None:
+    """Phase kmer: the device k-mer build against the host oracle on the
+    first 4 chunks of the full workload's accepted records."""
+    import copy
+    import dataclasses
+
+    from aligngraph_tpu_torch import (THRESHOLD, GraphTensors, ReadAligner,
+                                      build_contig_layer, build_kmer_layer)
+    from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
+    from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
+    from aligngraph_tpu_torch.ops.seeding import build_index
+
+    cfg, reads, genome = wl["cfg"], wl["reads"], wl["genome"]
+    k, iv = cfg.k_mer, cfg.insert_variation
+    t0 = time.perf_counter()
+    gseq = np.asarray(genome.seq, np.int8)
+    index = build_index(gseq, cfg.seed_len)
+    rali = ReadAligner.from_index(gseq, index, cfg,
+                                  device="cuda").align(reads)
+    cali = ContigAligner(gseq, cfg, index=index,
+                         device="cuda").align(wl["contigs"])
+    # the driver's C13 filter; one part, so every record is in it
+    ok = np.nonzero(rali.ratio_ok(THRESHOLD))[0][:KMER_CHUNKS * KMER_CHUNK]
+    recs = dataclasses.replace(rali, **{
+        f.name: getattr(rali, f.name)[ok] for f in dataclasses.fields(rali)})
+    g0 = GraphTensors.create(genome.part_seq(0))
+    build_contig_layer(g0, wl["contigs"], cali)
+    phase("kmer", f"aligned {reads.n_pairs} pairs and {cali.n} contig "
+          f"placements on cuda, contig layer built "
+          f"({time.perf_counter() - t0:.1f} s); {recs.n} records = "
+          f"{KMER_CHUNKS} chunks of {KMER_CHUNK}; {g0.km_cnt.shape[0]} "
+          f"positions")
+
+    g_host = copy.deepcopy(g0)
+    t0 = time.perf_counter()
+    st_host = build_kmer_layer(g_host, recs, reads, k, iv,
+                               chunk_records=KMER_CHUNK)
+    host_s = time.perf_counter() - t0
+    g_dev = copy.deepcopy(g0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st_dev = kj.build_kmer_layer_device(g_dev, recs, reads, k, iv,
+                                        chunk_records=KMER_CHUNK,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    bad = [f for f in KM_FIELDS
+           if getattr(g_dev, f).dtype != getattr(g_host, f).dtype
+           or not np.array_equal(getattr(g_dev, f), getattr(g_host, f))]
+    if bad or dataclasses.asdict(st_dev) != dataclasses.asdict(st_host):
+        raise AssertionError(f"device k-mer build != host oracle: fields "
+                             f"{bad}, stats {st_dev} vs {st_host}")
+    state_bytes = sum(getattr(g0, f).shape[0] * 4 * int(np.prod(
+        getattr(g0, f).shape[1:])) for f in KM_FIELDS)
+    if peak < state_bytes:
+        raise AssertionError(f"peak device memory {peak} B < the state's "
+                             f"{state_bytes} B: the build did not run on "
+                             f"the card")
+    phase("kmer", f"host oracle {host_s:.3f} s, device {dev_s:.3f} s "
+          f"({host_s / dev_s:.1f}x); all {len(KM_FIELDS)} fields and the "
+          f"stats equal: {dataclasses.asdict(st_dev)}; peak device memory "
+          f"{peak / 2**30:.2f} GiB (state {state_bytes / 2**30:.2f} GiB)")
+
+    # the device build's time split over all accepted records (the full
+    # size of the pipeline's stage): a CUDA event after each stage
+    events = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    acc = np.nonzero(rali.ratio_ok(THRESHOLD))[0]
+    every = dataclasses.replace(rali, **{
+        f.name: getattr(rali, f.name)[acc] for f in dataclasses.fields(rali)})
+    g_split = copy.deepcopy(g0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mark("start")
+    st = kj.build_kmer_layer_device(g_split, every, reads, k, iv,
+                                    chunk_records=KMER_CHUNK, device="cuda",
+                                    mark=mark)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if dataclasses.asdict(st) != HOST_KMER_STATS:
+        raise AssertionError(f"full-size device build stats {st} != "
+                             f"{HOST_KMER_STATS}")
+    split: dict = {}
+    for (_, a), (name, b) in zip(events, events[1:]):
+        split[name] = split.get(name, 0.0) + a.elapsed_time(b)
+    phase("kmer", f"all {every.n} records ({-(-every.n // KMER_CHUNK)} "
+          f"chunks): wall {wall:.3f} s; split, CUDA-event ms (normalize is "
+          f"host phase 0, the card idle): " + ", ".join(
+              f"{n} {t:.2f}" for n, t in split.items()))
+
+    # one chunk's update: its wall, then torch.profiler's device time
+    p1, p2, s1, lens, keep = kj.normalize_records(recs, reads, k, 0,
+                                                  g0.part_len)
+    cmpack = kj._cmpack(g0, "cuda")
+    args = kj._chunk_inputs(p1, p2, s1, lens, keep, 0, KMER_CHUNK, "cuda")
+    win = 2 * iv + 5 * kj.EP
+    n_pos = int(g0.km_cnt.shape[0])
+
+    def one_chunk(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kj._chunk_update(state, cmpack, *args, k=k, win=win, n_pos=n_pos)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # a fresh copy of the state each time, made outside the timed region
+    chunk_s = one_chunk(kj._state_from_graph(g0, "cuda"))
+    state = kj._state_from_graph(g0, "cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prof_s = one_chunk(state)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the device's own entries (kernels, copies, fills): the host ops
+    # that launched them carry the same time again
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in ops) / 1e6
+    phase("kmer", f"one chunk ({KMER_CHUNK} records): wall {chunk_s:.4f} s "
+          f"({prof_s:.4f} s under the profiler); device busy {busy:.4f} s "
+          f"in {sum(e.count for e in ops)} device ops, idle share "
+          f"{1 - busy / chunk_s:.3f} of the unprofiled wall; top 10 by "
+          f"device time:")
+    for e in ops[:10]:
+        print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}",
+              flush=True)
+
+
+def pipeline_full(results: dict, wl: dict) -> None:
+    """Phase 7: run_pipeline with the device k-mer build and Eval on cuda
+    at bench_pipeline.py's workload."""
+    import dataclasses
+
+    from aligngraph_tpu_torch.evaluate.evaluate import evaluate
+    from aligngraph_tpu_torch.pipeline.driver import run_pipeline
+
+    work = wl["work"]
+    cfg = dataclasses.replace(wl["cfg"], graph_build="device")
     t0 = time.perf_counter()
     res, launches, lanes = counted(lambda: run_pipeline(
-        cfg, reads=Reads(n_pairs, data.shape[1], data, lens),
-        contigs=formalize_contigs(cfg.contig),
-        genome=formalize_genome(cfg.genome, 1), device="cuda"))
+        cfg, reads=wl["reads"], contigs=wl["contigs"], genome=wl["genome"],
+        device="cuda"))
     wall = time.perf_counter() - t0
     require_launched("pipeline_full", launches, results)
     for n, r in results.items():
@@ -453,8 +630,10 @@ def pipeline_full(results: dict, work: Path) -> None:
           f"{lanes}; kmer stats {res.stats['kmer_build']}")
     if not res.stats["native_traversal"]:
         raise AssertionError("the native C++ traversal did not load")
-    if not res.extended_ids:
-        raise AssertionError("no contig was extended")
+    if res.stats["kmer_build"] != HOST_KMER_STATS:
+        raise AssertionError(f"device k-mer build stats "
+                             f"{res.stats['kmer_build']} != the host "
+                             f"build's {HOST_KMER_STATS}")
     t0 = time.perf_counter()
     m, e_launches, e_lanes = counted(lambda: evaluate(
         work / "target.fa", work / "extended.fa", device="cuda"))
@@ -465,8 +644,11 @@ def pipeline_full(results: dict, work: Path) -> None:
           f"{sum(len(s) for s in res.extended_seqs)} bases); Eval {m}")
     phase("full", "Eval vs the JAX package's BENCH_PIPE.json: " + ", ".join(
         f"{k} {got[k]} vs {v}" for k, v in BENCH_PIPE_EVAL.items()))
-    if not m["n_contigs"]:
-        raise AssertionError(f"Eval found no contig: {m}")
+    got["average_identity"] = round(got["average_identity"], 4)
+    diff = {k: (got[k], v) for k, v in BENCH_PIPE_EVAL.items()
+            if got[k] != v}
+    if diff:
+        raise AssertionError(f"Eval != BENCH_PIPE.json: {diff}")
 
 
 def main() -> int:
@@ -497,7 +679,9 @@ def main() -> int:
     read_aligner_path(results)
     with tempfile.TemporaryDirectory() as tmp:
         pipeline_small(results, Path(tmp) / "small")
-        pipeline_full(results, Path(tmp) / "full")
+        wl = full_workload(Path(tmp) / "full")
+        kmer_build(wl)
+        pipeline_full(results, wl)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

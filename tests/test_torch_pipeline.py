@@ -1,8 +1,8 @@
 """The port's pipeline on the CPU against the JAX package's, byte for byte:
 the extended, remaining and corrected FASTA and the tmp/ stage files, on
 tests/test_pipeline.py's sim.  Here: the default run with misassembly
-removal through the CLI, --resume, the degenerate parts case, and the
-CLI's surface."""
+removal through the CLI and with the device k-mer build, --resume, the
+degenerate parts case, and the CLI's surface."""
 
 import os
 import subprocess
@@ -96,11 +96,17 @@ STAGE_FILES = ("extended.fa", "remaining.fa", "corrected_extended.fa",
 
 
 @pytest.fixture(scope="module")
-def misassembly_runs(tmp_path_factory):
-    """The JAX pipeline with --misassemblyRemoval, and the port's through
-    its CLI (main(..., device="cpu"), work dir ./tmp)."""
+def sim_inputs(tmp_path_factory):
     inputs = tmp_path_factory.mktemp("inputs")
     write_sim(inputs)
+    return inputs
+
+
+@pytest.fixture(scope="module")
+def misassembly_runs(sim_inputs, tmp_path_factory):
+    """The JAX pipeline with --misassemblyRemoval, and the port's through
+    its CLI (main(..., device="cpu"), work dir ./tmp)."""
+    inputs = sim_inputs
     jdir = tmp_path_factory.mktemp("jax")
     jres = jax_run_pipeline(make_cfg(inputs, jdir, misassembly_removal=True))
     want = outputs(jdir)
@@ -164,9 +170,24 @@ def test_degenerate_parts_equal_jax(tmp_path):
                           "tmp/_initial_contigs.1.fa"))
 
 
-def test_device_graph_build_raises(tmp_path):
-    cfg = make_cfg(tmp_path, tmp_path, graph_build="device")
-    with pytest.raises(NotImplementedError, match="device k-mer build"):
+def test_device_graph_build_equals_jax(misassembly_runs, sim_inputs,
+                                      tmp_path):
+    """graph_build="device" (the port's k-mer layer build, here on the
+    CPU) with misassembly removal: the same bytes as the JAX pipeline's
+    host build, and the same k-mer build statistics."""
+    jres, want, _, _ = misassembly_runs
+    res = run_pipeline(make_cfg(sim_inputs, tmp_path, graph_build="device",
+                                misassembly_removal=True), device="cpu")
+    assert res.stats["kmer_build"] == jres.stats["kmer_build"]
+    assert res.stats["kmer_build"]["tuples"] > 100_000
+    assert_outputs_equal(outputs(tmp_path), want, STAGE_FILES)
+
+
+def test_device_graph_build_raises(sim_inputs, tmp_path):
+    """The device build packs a k-mer into 3 bits a base: k > 10 is
+    refused before any chunk runs."""
+    cfg = make_cfg(sim_inputs, tmp_path, graph_build="device", k_mer=11)
+    with pytest.raises(ValueError, match="k-mer size 11"):
         run_pipeline(cfg, device="cpu")
 
 

@@ -203,7 +203,8 @@ def test_port_sources_import_no_jax():
     files = sorted((REPO / "aligngraph_tpu_torch").rglob("*.py"))
     assert {"contig_aligner.py", "driver.py", "misassembly.py",
             "refinement.py", "evaluate.py", "coverage.py",
-            "__main__.py", "blat_cli.py"} <= {f.name for f in files}
+            "__main__.py", "blat_cli.py",
+            "kmer_layer_jit.py"} <= {f.name for f in files}
     for f in files + [REPO / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
         assert not jax_mods.search(f.read_text()), f
@@ -261,7 +262,8 @@ with tempfile.TemporaryDirectory() as d:
     cfg = Config(read1=f"{d}/r1.fa", read2=f"{d}/r2.fa", contig=f"{d}/c.fa",
                  genome=f"{d}/g.fa", distance_low=300, distance_high=700,
                  extended_contig=f"{d}/e.fa", remaining_contig=f"{d}/rem.fa",
-                 work_dir=f"{d}/tmp", misassembly_removal=True)
+                 work_dir=f"{d}/tmp", misassembly_removal=True,
+                 graph_build="device")
     out = run_pipeline(cfg, device="cpu")
     assert out.extended_ids and os.path.exists(f"{d}/corrected_e.fa")
     metrics = evaluate(f"{d}/t.fa", f"{d}/e.fa", device="cpu")
