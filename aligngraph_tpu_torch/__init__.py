@@ -26,20 +26,33 @@ reassembly pipeline with its aligners on one device:
                           one align (python3 -m
                           aligngraph_tpu_torch.profile_align)
 
-Host modules that import no JAX are reused from aligngraph_tpu (config,
-io, align/types, graph (the contig layer, the host k-mer build oracle,
-traversal), native, pipeline/checkpoint, utils) and the names a caller
-needs are re-exported here, so callers of the port need no import
-from the JAX package.  Nothing here imports jax, and nothing is built or
-loaded at import time: the CUDA kernels are compiled on first use.
+The host modules it shares with the JAX package (config, io,
+align/types, graph/{model, contig_layer, kmer_layer, traverse}, native,
+pipeline/checkpoint, compat/textout, utils) are the port's own copies, and
+the names a caller needs are re-exported here: nothing of the port imports
+jax or aligngraph_tpu.  Nothing is built or loaded at import time: the
+CUDA kernels (nvcc) and the C++ traversal and FASTA parser (g++) are
+compiled on first use into the git-ignored aligngraph_tpu_torch/_build/.
+A work dir written by the JAX package cannot be resumed by the port: its
+checkpoints pickle the JAX package's classes.
 """
 
-from aligngraph_tpu.align.types import PairAlignments  # noqa: F401
-from aligngraph_tpu.config import THRESHOLD, Config  # noqa: F401
-from aligngraph_tpu.graph.contig_layer import build_contig_layer  # noqa: F401
-from aligngraph_tpu.graph.kmer_layer import build_kmer_layer  # noqa: F401
-from aligngraph_tpu.graph.model import GraphTensors  # noqa: F401
-from aligngraph_tpu.io.fasta import decode, write_fasta  # noqa: F401
-from aligngraph_tpu.io.formalize import (  # noqa: F401
+# Host malloc tuning (utils/hostmem.py): keep freed pages on the heap so
+# large numpy temporaries reuse warm memory.
+from aligngraph_tpu_torch.utils.hostmem import tune_host_malloc as _thm
+
+_thm()
+
+from aligngraph_tpu_torch.align.types import PairAlignments  # noqa: E402,F401
+from aligngraph_tpu_torch.config import THRESHOLD, Config  # noqa: E402,F401
+from aligngraph_tpu_torch.graph.contig_layer import (  # noqa: E402,F401
+    build_contig_layer)
+from aligngraph_tpu_torch.graph.kmer_layer import (  # noqa: E402,F401
+    build_kmer_layer)
+from aligngraph_tpu_torch.graph.model import GraphTensors  # noqa: E402,F401
+from aligngraph_tpu_torch.io.fasta import (  # noqa: E402,F401
+    decode, write_fasta)
+from aligngraph_tpu_torch.io.formalize import (  # noqa: E402,F401
     Reads, formalize_contigs, formalize_genome)
-from aligngraph_tpu_torch.align.read_aligner import ReadAligner  # noqa: F401
+from aligngraph_tpu_torch.align.read_aligner import (  # noqa: E402,F401
+    ReadAligner)

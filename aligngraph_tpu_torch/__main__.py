@@ -33,7 +33,7 @@ usage: python -m aligngraph_tpu_torch --read1 reads_1.fa --read2 reads_2.fa
 
 
 def main(argv=None, device="cuda") -> int:
-    from aligngraph_tpu.config import Config, ConfigError
+    from aligngraph_tpu_torch.config import Config, ConfigError
 
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
@@ -47,7 +47,7 @@ def main(argv=None, device="cuda") -> int:
 
     import torch
 
-    from aligngraph_tpu.pipeline.checkpoint import Checkpoint
+    from aligngraph_tpu_torch.pipeline.checkpoint import Checkpoint
     from aligngraph_tpu_torch.pipeline.driver import run_pipeline
 
     device = torch.device(device)

@@ -26,9 +26,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from aligngraph_tpu.align.types import ContigAlignments
-from aligngraph_tpu.config import Config, INIT_CONTIG_THRESHOLD
-from aligngraph_tpu.io.formalize import Contigs
+from aligngraph_tpu_torch.align.types import ContigAlignments
+from aligngraph_tpu_torch.config import Config, INIT_CONTIG_THRESHOLD
+from aligngraph_tpu_torch.io.formalize import Contigs
 from aligngraph_tpu_torch.ops.banded_sw import banded_sw_posmap_auto
 from aligngraph_tpu_torch.ops.seeding import (
     SeedIndex, build_index, pack_kmers_np, rc_packed_np)

@@ -29,10 +29,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from aligngraph_tpu.align.types import PairAlignments
-from aligngraph_tpu.config import Config
-from aligngraph_tpu.io.formalize import Reads
-from aligngraph_tpu.utils.hostmem import tune_host_malloc
+from aligngraph_tpu_torch.align.types import PairAlignments
+from aligngraph_tpu_torch.config import Config
+from aligngraph_tpu_torch.io.formalize import Reads
+from aligngraph_tpu_torch.utils.hostmem import tune_host_malloc
 from aligngraph_tpu_torch.ops.banded_sw import banded_sw_posmap_auto
 from aligngraph_tpu_torch.ops.seeding import (
     INVALID_DIAG, SeedIndex, build_index, lookup_seeds_bucketed,

@@ -28,8 +28,8 @@ def main(argv=None, device="cuda") -> int:
         return 1
     db_path, q_path, out_path = pos[0], pos[1], pos[2]
 
-    from aligngraph_tpu.compat.textout import psl_lines
-    from aligngraph_tpu.config import Config
+    from aligngraph_tpu_torch.compat.textout import psl_lines
+    from aligngraph_tpu_torch.config import Config
     from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
     from aligngraph_tpu_torch.compat.common import genome_axis, query_contigs
 

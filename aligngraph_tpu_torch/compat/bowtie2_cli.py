@@ -41,10 +41,10 @@ def main(argv=None, device="cuda") -> int:
 
     import numpy as np
 
-    from aligngraph_tpu.compat.textout import sam_lines
-    from aligngraph_tpu.config import Config
-    from aligngraph_tpu.io.fasta import encode, read_fasta
-    from aligngraph_tpu.io.formalize import Reads
+    from aligngraph_tpu_torch.compat.textout import sam_lines
+    from aligngraph_tpu_torch.config import Config
+    from aligngraph_tpu_torch.io.fasta import encode, read_fasta
+    from aligngraph_tpu_torch.io.formalize import Reads
     from aligngraph_tpu_torch.align.read_aligner import ReadAligner
     from aligngraph_tpu_torch.compat.common import genome_axis
 

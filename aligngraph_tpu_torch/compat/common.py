@@ -5,8 +5,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from aligngraph_tpu.io.fasta import encode, read_fasta
-from aligngraph_tpu.io.formalize import Contigs
+from aligngraph_tpu_torch.io.fasta import encode, read_fasta
+from aligngraph_tpu_torch.io.formalize import Contigs
 
 
 def genome_axis(path: str, sep: int):

@@ -41,8 +41,8 @@ def main(argv=None, device="cuda") -> int:
     db_path, q_path = pos[0], pos[1]
     out_path = prefix + ".delta"
 
-    from aligngraph_tpu.compat.textout import delta_lines
-    from aligngraph_tpu.config import Config
+    from aligngraph_tpu_torch.compat.textout import delta_lines
+    from aligngraph_tpu_torch.config import Config
     from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
     from aligngraph_tpu_torch.compat.common import genome_axis, query_contigs
 

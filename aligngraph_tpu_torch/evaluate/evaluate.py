@@ -29,9 +29,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from aligngraph_tpu.config import Config
-from aligngraph_tpu.io.fasta import encode, read_fasta
-from aligngraph_tpu.io.formalize import Contigs
+from aligngraph_tpu_torch.config import Config
+from aligngraph_tpu_torch.io.fasta import encode, read_fasta
+from aligngraph_tpu_torch.io.formalize import Contigs
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
 
 CUTOFF = 1000      # Eval-AlignGraph.cpp:24

@@ -3,7 +3,8 @@ aligngraph_tpu/graph/kmer_layer_jit.py (C18/C19, `updateGenomeWithRead` +
 `updateKMer`, AlignGraph.cpp:1635-1870, 1353-1624).
 
 Same phases and bit-identical results as the host oracle
-(aligngraph_tpu/graph/kmer_layer.py) and the JAX device build (held equal
+(graph/kmer_layer.py, the port's copy of aligngraph_tpu/graph/kmer_layer.py)
+and the JAX device build (held equal
 in tests/test_torch_kmer_layer.py), as eager torch ops on `device`:
 
   - rows are COMPACT, not dense + masked: boolean masks and `nonzero`
@@ -34,11 +35,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from aligngraph_tpu.config import EP
-from aligngraph_tpu.graph.kmer_layer import (
+from aligngraph_tpu_torch.config import EP
+from aligngraph_tpu_torch.graph.kmer_layer import (
     CPM, CPO, KmerBuildStats, normalize_records,
 )
-from aligngraph_tpu.graph.model import E_ED, K_KM, NONE32, GraphTensors
+from aligngraph_tpu_torch.graph.model import E_ED, K_KM, NONE32, GraphTensors
 
 I32 = torch.int32
 I64 = torch.int64

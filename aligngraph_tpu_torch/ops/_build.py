@@ -31,6 +31,8 @@ _I = ctypes.c_int
 ARGTYPES = {
     # reads, rlens, windows, score, B, L, W, device, stream
     "ag_sw_score": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # reads, rlens, windows, score, B, L, W, cells per lane, device, stream
+    "ag_sw_score_cells": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # reads, rlens, windows, tb, score, best_i, best_b, B, L, W, device,
     # stream
     "ag_sw_dp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

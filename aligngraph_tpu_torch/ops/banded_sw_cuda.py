@@ -10,12 +10,14 @@ Each wrapper takes CUDA tensors only and raises on anything else (device,
 dtype, shape, contiguity); the plain versions for CPU tensors are in
 ops/banded_sw.py.  A wrapper allocates its outputs with torch.empty,
 launches on the current stream, does not synchronise, raises if the launch
-reported an error, and adds one to its kernel's count in LAUNCHES.
+reported an error, and adds one to its kernel's count in LAUNCHES and
+in LAUNCHES_BY_L (by kernel and read length L).
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 
@@ -25,10 +27,13 @@ from aligngraph_tpu_torch.ops.banded_sw import (
 )
 
 # launches of each kernel, and the lanes (candidates) they ran on, since
-# the last reset (chip_smoke.py reads them).  The pipeline launches from
+# the last reset (chip_smoke.py reads them): in total by kernel, and by
+# (kernel, L) in LAUNCHES_BY_L / LANES_BY_L.  The pipeline launches from
 # two host threads (read and contig aligners), so updates take the lock.
 LAUNCHES = {"score": 0, "dp": 0, "traceback": 0}
 LANES = {"score": 0, "dp": 0, "traceback": 0}
+LAUNCHES_BY_L: dict = {}
+LANES_BY_L: dict = {}
 _count_lock = threading.Lock()
 
 
@@ -37,6 +42,8 @@ def reset_launches() -> None:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
             LANES[k] = 0
+        LAUNCHES_BY_L.clear()
+        LANES_BY_L.clear()
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -69,13 +76,18 @@ def _check_dp_inputs(reads, rlens, windows, pad: int):
     return B, L, W
 
 
-def _launch(name: str, lanes: int, fn, *args) -> None:
+def _launch(name: str, L: int, lanes: int, fn, *args) -> None:
+    """fn(*args) (a C entry point), raising on its error; then one launch of
+    `name` on `lanes` lanes of length L is counted."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     with _count_lock:
         LAUNCHES[name] += 1
         LANES[name] += lanes
+        key = (name, L)
+        LAUNCHES_BY_L[key] = LAUNCHES_BY_L.get(key, 0) + 1
+        LANES_BY_L[key] = LANES_BY_L.get(key, 0) + lanes
 
 
 def _dev_stream(device: torch.device):
@@ -84,16 +96,33 @@ def _dev_stream(device: torch.device):
     return device.index, torch.cuda.current_stream(device).cuda_stream
 
 
-def sw_score_cuda(reads, rlens, windows, pad: int) -> torch.Tensor:
+# cells per lane the score kernel is built for, by band width; other widths
+# run one cell a lane
+SCORE_CELLS = {16: (1, 2, 4, 8), 32: (1, 2, 4, 8)}
+
+
+def sw_score_cuda(reads, rlens, windows, pad: int,
+                  cells_per_lane: Optional[int] = None) -> torch.Tensor:
     """Score-only banded DP -> best local score [B] int32 (the plain
-    version is banded_sw(...).score)."""
+    version is banded_sw(...).score).  `cells_per_lane` names the kernel's
+    layout (SCORE_CELLS; for measuring them): None leaves it to the
+    kernel."""
     B, L, W = _check_dp_inputs(reads, rlens, windows, pad)
+    if cells_per_lane is not None and \
+            cells_per_lane not in SCORE_CELLS.get(W, (1,)):
+        raise ValueError(f"cells_per_lane {cells_per_lane} is not built for "
+                         f"band width {W}: {SCORE_CELLS.get(W, (1,))}")
     score = torch.empty(B, dtype=torch.int32, device=reads.device)
     if B:
         lib = _build.load_library()
-        _launch("score", B, lib.ag_sw_score, reads.data_ptr(),
-                rlens.data_ptr(), windows.data_ptr(), score.data_ptr(),
-                B, L, W, *_dev_stream(reads.device))
+        args = (reads.data_ptr(), rlens.data_ptr(), windows.data_ptr(),
+                score.data_ptr(), B, L, W)
+        if cells_per_lane is None:
+            _launch("score", L, B, lib.ag_sw_score, *args,
+                    *_dev_stream(reads.device))
+        else:
+            _launch("score", L, B, lib.ag_sw_score_cells, *args,
+                    cells_per_lane, *_dev_stream(reads.device))
     return score
 
 
@@ -109,8 +138,9 @@ def sw_dp_cuda(reads, rlens, windows, pad: int):
     best_b = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         lib = _build.load_library()
-        _launch("dp", B, lib.ag_sw_dp, reads.data_ptr(), rlens.data_ptr(),
-                windows.data_ptr(), tb.data_ptr(), score.data_ptr(),
+        _launch("dp", L, B, lib.ag_sw_dp, reads.data_ptr(),
+                rlens.data_ptr(), windows.data_ptr(), tb.data_ptr(),
+                score.data_ptr(),
                 best_i.data_ptr(), best_b.data_ptr(), B, L, W,
                 *_dev_stream(dev))
     return tb, score, best_i, best_b
@@ -132,7 +162,7 @@ def sw_traceback_cuda(tb, best_i, best_b, g0, pad: int) -> torch.Tensor:
     pos_map = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B:
         lib = _build.load_library()
-        _launch("traceback", B, lib.ag_sw_traceback, tb.data_ptr(),
+        _launch("traceback", L, B, lib.ag_sw_traceback, tb.data_ptr(),
                 best_i.data_ptr(), best_b.data_ptr(), g0.data_ptr(),
                 pos_map.data_ptr(), B, L, W, pad, traceback_steps(L, W),
                 *_dev_stream(dev))

@@ -17,8 +17,8 @@ the JAX aligners) with the port's ReadAligner and ContigAligner on
 `device`, sharing one seed index built on the host, and with
 cfg.graph_build="device" the port's k-mer layer build
 (graph/kmer_layer_jit.py) on `device`.  The contig layer, the host k-mer
-build, traversal, checkpointing and stage files are the JAX package's host
-modules, reused by import; none of them imports jax.
+build, traversal, checkpointing and stage files are the port's own copies
+of the JAX package's host modules.
 """
 
 from __future__ import annotations
@@ -30,19 +30,21 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from aligngraph_tpu import native
-from aligngraph_tpu.align.types import ContigAlignments, PairAlignments
-from aligngraph_tpu.config import Config, THRESHOLD
-from aligngraph_tpu.graph.contig_layer import build_contig_layer, \
+from aligngraph_tpu_torch import native
+from aligngraph_tpu_torch.align.types import ContigAlignments, PairAlignments
+from aligngraph_tpu_torch.config import Config, THRESHOLD
+from aligngraph_tpu_torch.graph.contig_layer import build_contig_layer, \
     initial_contigs
-from aligngraph_tpu.graph.kmer_layer import KmerBuildStats, build_kmer_layer
-from aligngraph_tpu.graph.model import GraphTensors
-from aligngraph_tpu.graph.traverse import extend_and_scaffold
-from aligngraph_tpu.io.fasta import decode, write_fasta
-from aligngraph_tpu.io.formalize import (Contigs, Genome, Reads,
-                                         formalize_contigs,
-                                         formalize_genome, formalize_reads)
-from aligngraph_tpu.utils.log import stage_banner, get_logger, log_memory
+from aligngraph_tpu_torch.graph.kmer_layer import KmerBuildStats, \
+    build_kmer_layer
+from aligngraph_tpu_torch.graph.model import GraphTensors
+from aligngraph_tpu_torch.graph.traverse import extend_and_scaffold
+from aligngraph_tpu_torch.io.fasta import decode, write_fasta
+from aligngraph_tpu_torch.io.formalize import (Contigs, Genome, Reads,
+                                               formalize_contigs,
+                                               formalize_genome,
+                                               formalize_reads)
+from aligngraph_tpu_torch.utils.log import stage_banner, get_logger, log_memory
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
 from aligngraph_tpu_torch.align.read_aligner import ReadAligner
 from aligngraph_tpu_torch.graph.kmer_layer_jit import build_kmer_layer_device
@@ -155,7 +157,7 @@ def run_pipeline(cfg: Config,
     # pick up from the last checkpoint (reference :4748-4760)
     resume_from = -1
     if cfg.resume:
-        from aligngraph_tpu.pipeline.checkpoint import Checkpoint
+        from aligngraph_tpu_torch.pipeline.checkpoint import Checkpoint
         checkpoint = Checkpoint(cfg.work_dir)
         cfg = checkpoint.load_command()
         resume_from = checkpoint.get()

@@ -32,10 +32,10 @@ import numpy as np
 
 import torch
 
-from aligngraph_tpu.config import MIN_THRESHOLD, Config
-from aligngraph_tpu.graph.traverse import _overlap
-from aligngraph_tpu.io.fasta import decode, write_fasta
-from aligngraph_tpu.io.formalize import Contigs, Reads, formalize_contigs
+from aligngraph_tpu_torch.config import MIN_THRESHOLD, Config
+from aligngraph_tpu_torch.graph.traverse import _overlap
+from aligngraph_tpu_torch.io.fasta import decode, write_fasta
+from aligngraph_tpu_torch.io.formalize import Contigs, Reads, formalize_contigs
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
 from aligngraph_tpu_torch.align.read_aligner import ReadAligner
 from aligngraph_tpu_torch.evaluate.evaluate import _close, _conflict

@@ -30,8 +30,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from aligngraph_tpu.config import Config, SMALL_CHUNK
-from aligngraph_tpu.io.formalize import Contigs, Genome
+from aligngraph_tpu_torch.config import Config, SMALL_CHUNK
+from aligngraph_tpu_torch.io.formalize import Contigs, Genome
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
 
 SEP_N = 64   # N-run separator between concatenated extended contigs

@@ -4,19 +4,27 @@
 
 Phases, one line each, any failure raises (non-zero exit):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
-     power limit.
-  2. build: compiles aligngraph_tpu_torch/csrc/*.cu with nvcc (sm_90a).
+     power limit, the SM count and the maximum SM clock.
+  2. build: compiles aligngraph_tpu_torch/csrc/*.cu with nvcc (sm_90a) and
+     the C++ traversal and FASTA parser with g++, all into
+     aligngraph_tpu_torch/_build/.
   3. kernels: each hand-written kernel against its plain PyTorch version
      on the same CUDA tensors, at the read aligner's shapes (L 100, pad 16,
-     98,304 score lanes; a few thousand dp/traceback lanes; pad 8; ~30%
-     indel lanes; rlen-0 lanes) and at the contig aligner's tile (L 512,
-     pad 16, 2,048 lanes: indels up to 6 bases, diagonal offsets up to
-     +-12, partial and length-0 tiles).  Everything is integer: tolerance
-     0.  CUDA-event times, kernel vs plain, per shape.
+     98,304 score lanes; 4,096 dp/traceback lanes; pad 8; ~30% indel
+     lanes; rlen-0 lanes), at the contig aligner's tile (L 512, pad 16,
+     2,048 lanes: indels up to 6 bases, diagonal offsets up to +-12,
+     partial and length-0 tiles), and where the kernels take their other
+     layouts: pad 5 (one score cell a lane, tb staged by byte copies), L
+     4,000 (one staging buffer a warp) and L 8,000 (tb walked in global
+     memory).  Every layout of the score kernel (cells per lane) is
+     checked, and timed at L 100 and L 512.  Everything is integer:
+     tolerance 0.  CUDA-event times, kernel vs plain, and each kernel's
+     bound (bytes or operations on these inputs) per shape.
   4. read aligner: ReadAligner.build(..., device="cuda").align on the
      benchmark workload (4.6 Mb genome, 100,000 pairs of 100 bp, insert
      500, 1% SNPs, seed 0, batch_pairs 32,768); 3 timed runs after a
-     warm-up; every kernel must have launched.
+     warm-up; every kernel must have launched.  Each path prints its
+     launches and lanes per kernel and read length L.
   5. check: align on the first 2,048 pairs on "cuda" and on "cpu" (the
      plain path); every PairAlignments field must be equal.
   6. pipeline small: tests/test_pipeline.py's sim (seed 42, 30 kb, 3,000
@@ -44,8 +52,9 @@ Phases, one line each, any failure raises (non-zero exit):
      workload (HOST_KMER_STATS) and Eval the JAX package's BENCH_PIPE.json
      (identity to 4 places); fails too if the native C++ traversal did
      not load.
-Then a JSON line of per-kernel results, nvidia-smi's line, and the last
-line {"ok": true, "device": {...}}.
+Then a JSON line of per-kernel results (launches: the main path's,
+run_pipeline then Eval), nvidia-smi's line, and the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -119,11 +128,14 @@ def dp_lanes(rng, B, L, pad, indel_frac=0.3, G=1_000_000):
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() on the current stream (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call).  The stream first sleeps ~10 ms, so the host
+    queues the reps while it waits and the events time the device's work,
+    not the host's launch cost."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -142,10 +154,88 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def check_kernels(results: dict) -> None:
-    """Each kernel against its plain version at every shape of the paths;
-    CUDA-event times per shape go to results[name]["shapes"], and the read
-    aligner's (L 100, pad 16) are also results[name]["ms"/"plain_ms"]."""
+# the card's figures behind bound_ms: INT32 lanes of a Hopper SM (NVIDIA's
+# H100 white paper), device memory rate of the H100 SXM (data sheet); the
+# SM count and the maximum SM clock are read from the card
+INT32_LANES_PER_SM = 64
+MEM_BYTES_PER_S = 3.35e12
+# integer operations per band cell of the recurrence: substitution score,
+# M, E, Hno, the in-row F, H and the running best
+OPS_PER_CELL = 10
+# integer operations per move of the traceback walk
+OPS_PER_MOVE = 6
+
+
+def card_figures(kind: str) -> dict:
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"kind": kind, "sms": sms, "max_sm_clock_mhz": float(clk),
+            "int32_ops_per_s": sms * INT32_LANES_PER_SM * float(clk) * 1e6,
+            "bytes_per_s": MEM_BYTES_PER_S}
+
+
+def bound(card: dict, ops: float, nbytes: float) -> dict:
+    """The least time the card could take for `ops` integer operations and
+    `nbytes` bytes moved: the larger of the two times."""
+    ops_ms = ops / card["int32_ops_per_s"] * 1e3
+    bytes_ms = nbytes / card["bytes_per_s"] * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def kernel_bounds(card, reads, rlens, W, best_i, pm) -> dict:
+    """Each kernel's bound on these inputs (what this data needs).
+      score: the rows up to each lane's rlen, W cells each, OPS_PER_CELL
+             operations a cell; reads, windows and rlens read, the score
+             written.
+      dp: every row (its traceback bytes are an output), W cells each;
+          reads, windows, rlens read, tb and three words written.
+      traceback: the tb rows a walk can reach (best_i * W bytes a lane),
+          best_i, best_b, g0 read, pos_map written; OPS_PER_MOVE a move
+          (the diag moves, pm >= 0)."""
+    B, L = reads.shape
+    rows = int(rlens.clamp(0, L).sum())
+    inputs = B * (L + (L + W) + 4)
+    return {
+        "score": bound(card, rows * W * OPS_PER_CELL, inputs + 4 * B),
+        "dp": bound(card, B * L * W * OPS_PER_CELL,
+                    inputs + B * L * W + 12 * B),
+        "traceback": bound(card, int((pm >= 0).sum()) * OPS_PER_MOVE,
+                           int(best_i.clamp(0, L).sum()) * W + 4 * B * L
+                           + 12 * B),
+    }
+
+
+def kernel_results() -> dict:
+    """The per-kernel entries of the JSON line, before any phase ran."""
+    return {n: {"name": KERNEL_NAMES[n], "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[n], "launches": 0, "max_abs_err": 0,
+                "ms": None, "plain_ms": None, "bound_ms": None,
+                "bound_by": None,
+                # no PyTorch call computes a banded affine-gap local DP or
+                # its traceback
+                "library_ms": None, "launches_by_path": {}, "shapes": {}}
+            for n in ("score", "dp", "traceback")}
+
+
+# lanes the score kernel's layouts are timed at, by shape
+SCORE_SWEEP = {"L100 pad16": (2_048, 8_192, 32_768, B_SCORE),
+               "L512 pad16": (B_TILE,)}
+
+
+def check_kernels(results: dict, card: dict) -> None:
+    """Each kernel against its plain version at every shape of the paths,
+    and at the shapes that take the kernels' other layouts (a band width
+    other than 16 and 32; one or no staging buffer in the traceback).
+    CUDA-event times and bounds per shape go to results[name]["shapes"],
+    and the read aligner's (L 100, pad 16) are also results[name]["ms"/
+    "plain_ms"/"bound_ms"].  The score kernel's layouts (cells per lane)
+    are each checked, and timed at L 100 and L 512, pad 16, on the lanes
+    of SCORE_SWEEP."""
     from aligngraph_tpu_torch.ops import banded_sw as plain
     from aligngraph_tpu_torch.ops import banded_sw_cuda as k
     from aligngraph_tpu_torch.workload import tile_lanes
@@ -158,21 +248,40 @@ def check_kernels(results: dict) -> None:
         ("L100 pad16", lambda: dp_lanes(rng, B_DP, L_MAIN, PAD_MAIN),
          PAD_MAIN, ("dp", "traceback"), False),
         ("L100 pad8", lambda: dp_lanes(rng, B_DP, L_MAIN, 8), 8, (), False),
+        ("L100 pad5", lambda: dp_lanes(rng, 1024, L_MAIN, 5), 5, (), False),
         ("L512 pad16", lambda: tile_lanes(rng, B_TILE, L_TILE, PAD_TILE),
          PAD_TILE, ("score", "dp", "traceback"), False),
+        ("L4000 pad16", lambda: dp_lanes(rng, 40, 4000, 16), 16, (), False),
+        ("L8000 pad16", lambda: dp_lanes(rng, 12, 8000, 16), 16, (), False),
     ]
+    cells_ms: dict = {}
     for label, make, pad, timed, score_only in cases:
         reads, rlens, windows, g0 = (torch.from_numpy(a).cuda()
                                      for a in make())
-        B = reads.shape[0]
+        B, L = reads.shape
+        W = 2 * pad
         ref = plain.banded_sw(reads, rlens, windows, pad)
         score = k.sw_score_cuda(reads, rlens, windows, pad)
         torch.cuda.synchronize()
         errs = {"score": max_err(score, ref.score)}
+        # every layout the score kernel is built for at this band width,
+        # timed on the first n lanes for each n of SCORE_SWEEP
+        for cells in k.SCORE_CELLS.get(W, (1,)):
+            s_c = k.sw_score_cuda(reads, rlens, windows, pad,
+                                  cells_per_lane=cells)
+            torch.cuda.synchronize()
+            errs["score"] = max(errs["score"], max_err(s_c, ref.score))
+            for n in (SCORE_SWEEP[label] if "score" in timed else ()):
+                cells_ms.setdefault(f"{label} {n} lanes", {})[cells] = \
+                    cuda_ms(lambda: k.sw_score_cuda(
+                        reads[:n], rlens[:n], windows[:n], pad,
+                        cells_per_lane=cells), 20)
         plain_dp = (lambda: plain.banded_sw(reads, rlens, windows, pad))
         fns = {"score": (lambda: k.sw_score_cuda(reads, rlens, windows,
                                                  pad), plain_dp)}
-        msg = f"{label}: lanes {B} max_abs_err score {errs['score']}"
+        msg = (f"{label}: lanes {B} (rlen 0: {int((rlens == 0).sum())}) "
+               f"max_abs_err score {errs['score']}")
+        pm_ref = None
         if not score_only:
             res = k.banded_sw_cuda(reads, rlens, windows, pad)
             torch.cuda.synchronize()
@@ -213,39 +322,63 @@ def check_kernels(results: dict) -> None:
         for name, err in errs.items():
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                                err)
+        if timed:
+            bounds = kernel_bounds(card, reads, rlens, W, ref.best_i,
+                                   pm_ref if pm_ref is not None
+                                   else torch.empty(0))
         for name in timed:
             results[name]["shapes"][label] = {
                 "lanes": B, "ms": cuda_ms(fns[name][0], 20),
-                "plain_ms": cuda_ms(fns[name][1], 2)}
+                "plain_ms": cuda_ms(fns[name][1], 2), **bounds[name]}
         phase("kernels", msg)
     bad = {n: r["max_abs_err"] for n, r in results.items()
            if r["max_abs_err"] != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
+    for label, by_cells in cells_ms.items():
+        phase("kernels", f"sw_score_kernel {label} by cells per lane: "
+              + ", ".join(f"C {c}: {t:.4f} ms" for c, t in by_cells.items()))
+    results["score"]["cells_ms"] = {
+        label: {str(c): t for c, t in by_cells.items()}
+        for label, by_cells in cells_ms.items()}
     for n, r in results.items():
-        r["ms"] = r["shapes"]["L100 pad16"]["ms"]
-        r["plain_ms"] = r["shapes"]["L100 pad16"]["plain_ms"]
+        main = r["shapes"]["L100 pad16"]
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            r[key] = main[key]
         for label, t in r["shapes"].items():
             phase("kernels", f"{KERNEL_NAMES[n]} {label} ({t['lanes']} "
                   f"lanes): {t['ms']:.4f} ms vs plain {t['plain_ms']:.4f} "
-                  f"ms")
+                  f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                  f"{t['ops']:.4g} ops, {t['bytes']:.4g} B), "
+                  f"{t['bound_ms'] / t['ms']:.3f} of it")
 
 
 def counted(fn):
     """fn() with every kernel count set to 0 just before it -> (fn's
-    result, launches, lanes) read just after."""
+    result, launches, lanes, by_L) read just after; by_L maps "kernel L"
+    to {"launches", "lanes"}."""
     from aligngraph_tpu_torch.ops import banded_sw_cuda as k
 
     k.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(k.LAUNCHES), dict(k.LANES)
+    by_l = {f"{n} L{L}": {"launches": k.LAUNCHES_BY_L[(n, L)],
+                          "lanes": k.LANES_BY_L[(n, L)]}
+            for (n, L) in sorted(k.LAUNCHES_BY_L)}
+    return out, dict(k.LAUNCHES), dict(k.LANES), by_l
 
 
-def require_launched(path: str, launches: dict, results: dict) -> None:
+def require_launched(path: str, launches: dict, by_l: dict,
+                     results: dict) -> None:
     for n, r in results.items():
-        r["launches_by_path"][path] = launches[n]
+        r["launches_by_path"][path] = {
+            "launches": launches[n],
+            **{key.split()[1]: v for key, v in by_l.items()
+               if key.split()[0] == n}}
+    phase("launches", f"{path}: " + "; ".join(
+        f"{key}: {v['launches']} launches, {v['lanes']} lanes"
+        for key, v in by_l.items()))
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched on the {path} "
                              f"path: {launches}")
@@ -289,8 +422,8 @@ def read_aligner_path(results: dict) -> None:
             walls.append(time.perf_counter() - t0)
         return walls, outs
 
-    (walls, outs), launches, lanes = counted(timed_aligns)
-    require_launched("read_aligner", launches, results)
+    (walls, outs), launches, lanes, by_l = counted(timed_aligns)
+    require_launched("read_aligner", launches, by_l, results)
     for other in outs[1:]:
         for f in FIELDS:
             if not np.array_equal(getattr(other, f), getattr(outs[0], f)):
@@ -382,7 +515,7 @@ def pipeline_small(results: dict, work: Path) -> None:
             os.chdir(out)                   # the CLI's work dir is ./tmp
             t0 = time.perf_counter()
             try:
-                rc, launches, lanes = counted(
+                rc, launches, lanes, by_l = counted(
                     lambda: cli.main(argv + flags, device=dev))
             finally:
                 os.chdir(cwd)
@@ -390,7 +523,8 @@ def pipeline_small(results: dict, work: Path) -> None:
             if rc != 0:
                 raise AssertionError(f"CLI {name} on {dev} exited {rc}")
             if dev == "cuda" and name == "misassembly":
-                require_launched("pipeline_small", launches, results)
+                require_launched("pipeline_small", launches, by_l,
+                                 results)
             files[dev] = pipeline_files(out)
             evals[dev] = evaluate(work / "target.fa", out / "extended.fa",
                                   device=dev)
@@ -612,13 +746,11 @@ def pipeline_full(results: dict, wl: dict) -> None:
     work = wl["work"]
     cfg = dataclasses.replace(wl["cfg"], graph_build="device")
     t0 = time.perf_counter()
-    res, launches, lanes = counted(lambda: run_pipeline(
+    res, launches, lanes, by_l = counted(lambda: run_pipeline(
         cfg, reads=wl["reads"], contigs=wl["contigs"], genome=wl["genome"],
         device="cuda"))
     wall = time.perf_counter() - t0
-    require_launched("pipeline_full", launches, results)
-    for n, r in results.items():
-        r["launches"] = launches[n]
+    require_launched("pipeline_full", launches, by_l, results)
     st = res.stats["stage_seconds"]
     phase("full", f"run_pipeline wall {wall:.2f} s; stages "
           + ", ".join(f"{k} {st[k]:.2f} s" for k in
@@ -635,9 +767,13 @@ def pipeline_full(results: dict, wl: dict) -> None:
                              f"{res.stats['kmer_build']} != the host "
                              f"build's {HOST_KMER_STATS}")
     t0 = time.perf_counter()
-    m, e_launches, e_lanes = counted(lambda: evaluate(
+    m, e_launches, e_lanes, e_by_l = counted(lambda: evaluate(
         work / "target.fa", work / "extended.fa", device="cuda"))
     eval_s = time.perf_counter() - t0
+    require_launched("eval", e_launches, e_by_l, results)
+    # the main path: run_pipeline, then Eval of its extended contigs
+    for n, r in results.items():
+        r["launches"] = launches[n] + e_launches[n]
     got = {"extended": len(res.extended_ids), **m}
     phase("full", f"eval {eval_s:.2f} s, launches {e_launches}, lanes "
           f"{e_lanes}; extended {len(res.extended_ids)} ("
@@ -662,19 +798,28 @@ def main() -> int:
     phase("device", f"{kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
+    from aligngraph_tpu_torch import native
     from aligngraph_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
     phase("build", f"nvcc built and loaded {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if native.get_lib() is None or native.get_fasta_lib() is None:
+        raise AssertionError("g++ did not build the C++ traversal and FASTA "
+                             "parser (aligngraph_tpu_torch/native)")
+    phase("build", f"g++ built and loaded the C++ traversal and FASTA parser "
+          f"into aligngraph_tpu_torch/_build/ in "
+          f"{time.perf_counter() - t0:.1f} s")
+    card = card_figures(kind)
+    phase("device", f"{card['sms']} SMs, max SM clock "
+          f"{card['max_sm_clock_mhz']:.0f} MHz: "
+          f"{card['int32_ops_per_s'] / 1e12:.2f} T int32 ops/s; "
+          f"{card['bytes_per_s'] / 1e12:.2f} TB/s")
 
-    results = {n: {"name": KERNEL_NAMES[n], "route": "cuda",
-                   "source": SOURCE, "replaces": REPLACES[n], "launches": 0,
-                   "launches_by_path": {}, "max_abs_err": 0, "ms": None,
-                   "plain_ms": None, "shapes": {}}
-               for n in ("score", "dp", "traceback")}
-    check_kernels(results)
+    results = kernel_results()
+    check_kernels(results, card)
 
     read_aligner_path(results)
     with tempfile.TemporaryDirectory() as tmp:

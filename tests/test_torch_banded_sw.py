@@ -304,7 +304,7 @@ def test_launch_counts_survive_threads():
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(target=lambda: [
-            banded_sw_cuda._launch("dp", 3, lambda: 0)
+            banded_sw_cuda._launch("dp", 100, 3, lambda: 0)
             for _ in range(per_thread)]) for _ in range(n_threads)]
         for t in threads:
             t.start()
@@ -315,5 +315,9 @@ def test_launch_counts_survive_threads():
         sys.setswitchinterval(old)
     assert banded_sw_cuda.LAUNCHES["dp"] == n_threads * per_thread
     assert banded_sw_cuda.LANES["dp"] == 3 * n_threads * per_thread
+    assert banded_sw_cuda.LAUNCHES_BY_L == {("dp", 100): n_threads * per_thread}
+    assert banded_sw_cuda.LANES_BY_L == {("dp", 100):
+                                         3 * n_threads * per_thread}
     banded_sw_cuda.reset_launches()
     assert banded_sw_cuda.LAUNCHES == {"score": 0, "dp": 0, "traceback": 0}
+    assert banded_sw_cuda.LAUNCHES_BY_L == {} == banded_sw_cuda.LANES_BY_L
