@@ -40,102 +40,6 @@ constexpr int kGapExt = 1;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
 
-// sw_dp_kernel.
-//
-// Replaces aligngraph_tpu/ops/banded_sw_pallas.py:_kernel (the DP with
-// traceback bytes and the best cell).
-//
-// Design: one warp per candidate; lane b < W holds band cell b of the
-// current row in registers (H, E), so the whole DP state of a candidate
-// lives in one warp's registers across the L rows.  "Up" is one
-// __shfl_down_sync, "left" one __shfl_up_sync, the in-row F scan log2(W)
-// __shfl_up_sync steps; the row best is a warp max (__reduce_max_sync) and
-// the lowest band among its ties a __ballot_sync + __ffs.  Lanes b >= W
-// (W < 32) hold kNeg: shfl_up only moves values to higher lanes, so they
-// never feed a live lane there, and the one shfl_down source past W-1 is
-// masked to kNeg explicitly.
-//
-// What bounds it on this card: integer ALU and shuffle issue (about a dozen
-// shuffles and ~60 integer ops per row per warp); its only large output is
-// the L*W traceback bytes per candidate: each row's W bytes are one
-// contiguous 32-byte store per warp, and the wrapper runs the dp pass only
-// on the lanes that need a traceback (the gapless fast path synthesizes the
-// rest), which keeps those bytes small.  The candidate's read byte is a
-// broadcast load, its window bytes one coalesced 32-byte load per row.
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sw_dp_kernel(const int8_t* __restrict__ reads,
-             const int32_t* __restrict__ rlens,
-             const int8_t* __restrict__ windows, uint8_t* __restrict__ tb,
-             int32_t* __restrict__ score, int32_t* __restrict__ best_i,
-             int32_t* __restrict__ best_b, int B, int L, int W) {
-  const int lane = threadIdx.x & 31;
-  const long long c =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (c >= B) return;  // c is warp-uniform: whole warps leave together
-  const bool live = lane < W;
-  const int rlen = rlens[c];
-  const int8_t* rrow = reads + c * L;
-  const int8_t* wrow = windows + c * (long long)(L + W);
-  uint8_t* tbrow = tb + c * (long long)L * W;
-
-  int Hp = live ? 0 : kNeg;
-  int Ep = kNeg;
-  int bs = 0, bi = 0, bb = 0;
-  for (int i = 1; i <= L; ++i) {
-    const int r = rrow[i - 1];
-    const int w = live ? (int)wrow[i - 1 + lane] : 4;
-    const int s = (r == w && r < 4) ? kMatch
-                                    : ((r >= 4 || w >= 4) ? kNPen : kMismatch);
-    const int M = Hp + s;
-    int hu = __shfl_down_sync(kFull, Hp, 1);
-    int eu = __shfl_down_sync(kFull, Ep, 1);
-    if (lane + 1 >= W) {
-      hu = kNeg;
-      eu = kNeg;
-    }
-    const int e_open = hu - (kGapOpen + kGapExt);
-    const int e_ext = eu - kGapExt;
-    const int E = max(e_open, e_ext);
-    const int Hno = max(max(M, E), 0);
-    int G = Hno - kGapOpen;
-    for (int sh = 1; sh < W; sh <<= 1) {
-      const int t = __shfl_up_sync(kFull, G, sh);
-      if (lane >= sh) G = max(G, t - kGapExt * sh);
-    }
-    int gl = __shfl_up_sync(kFull, G, 1);
-    int hl = __shfl_up_sync(kFull, Hno, 1);
-    if (lane == 0) {
-      gl = kNeg;
-      hl = kNeg;
-    }
-    const int F = gl - kGapExt;
-    const int H = max(Hno, F);
-    if (live) {
-      const int f_open = hl - (kGapOpen + kGapExt);
-      const int choice = H == 0 ? 0 : (M == H ? 1 : (E == H ? 2 : 3));
-      tbrow[(long long)(i - 1) * W + lane] = (uint8_t)(
-          choice | ((e_ext > e_open) << 2) | ((F > f_open) << 3));
-    }
-    if (i <= rlen) {  // warp-uniform: rows past the read are not tracked
-      const int hm = live ? H : kNeg;
-      const int row_best = __reduce_max_sync(kFull, hm);
-      // strictly greater: the first row reaching the best keeps it
-      if (row_best > bs) {
-        bs = row_best;
-        bi = i;
-        bb = __ffs(__ballot_sync(kFull, live && hm == row_best)) - 1;
-      }
-    }
-    Hp = live ? H : kNeg;
-    Ep = live ? E : kNeg;
-  }
-  if (lane == 0) {
-    score[c] = bs;
-    best_i[c] = bi;
-    best_b[c] = bb;
-  }
-}
-
 // sw_score_kernel.
 //
 // Replaces aligngraph_tpu/ops/banded_sw_pallas.py:_kernel_score (the
@@ -265,6 +169,278 @@ sw_score_kernel(const int8_t* __restrict__ reads,
   for (int s = G / 2; s > 0; s >>= 1)
     best = max(best, __shfl_xor_sync(kFull, best, s, G));
   if (valid && g == 0) score[c] = best;
+}
+
+// sw_dp_kernel.
+//
+// Replaces aligngraph_tpu/ops/banded_sw_pallas.py:_kernel (the DP with
+// traceback bytes and the best cell).
+//
+// What bounds it on this card: integer operations.  Every row's traceback
+// bytes are an output, so it runs all L rows of every candidate: the
+// recurrence's ~10 operations a cell plus the byte's, against L*W bytes
+// written a candidate (33.5 MB at L 512 and 2,048 lanes, 0.010 ms of
+// device memory).  With few candidates, what shows is a row's chain of
+// dependent shuffles and add-maxes, and the operations one warp issues
+// per row.
+//
+// Design: sw_score_kernel's layout (C cells a lane, G lanes a candidate,
+// 32/G candidates a warp; default_dp_cells picks C per launch) and forms:
+//  - E carried as Et = E + i: one add-max a cell.  The top cell's "up" is
+//    outside the band; a decay of kFar takes it out, and the top cell's
+//    Et stays kNeg.
+//  - the in-row F carried as F + 3 (S[k] = max(S[k-1] - 1, Hno[k]) in the
+//    lane), joined across the group by one __shfl_up_sync and a
+//    log2(G)-step max-plus scan with decay C per lane.  At C 1 the scan
+//    runs inclusive, giving F of the next cell, and H = max(Hno, that
+//    F + 1) needs no shift: one shuffle less on the row's chain.
+//  - the traceback byte from values the recurrence holds: the choice from
+//    the true M, E (Et - i) and H, as two bits of three compares with no
+//    branch; E-extend as Et_up - Hup > i - 3 (a tie is an open);
+//    F-extend as F > Hno[b-1] - 3, from the previous lane by one
+//    __shfl_up_sync off the chain.  A lane's C bytes are packed in
+//    registers and written with one C-byte store; a candidate's row stays
+//    one contiguous W-byte segment.
+//  - the best cell reduced once, not per row: each lane keeps the key
+//    H * 32 + 31 - b of its best cell, replaced only by a row (i <= rlen)
+//    whose largest key has a strictly larger H, so it keeps the first row
+//    and, in it, the lowest band.  At the end the group reduces by (score
+//    desc, row asc, band asc).  That is the plain rule: the final score is
+//    first reached in one row, and a lane reaching it later has a larger
+//    row.  Rows past rlen are masked per lane, so candidates of different
+//    lengths share a warp with no branch.
+//  - no loads on the row chain: the read and window bytes of the next
+//    kAhead rows load while the current kAhead rows run, with no bounds
+//    while the next block lies inside the read, and blocks of kAhead rows
+//    run with no branch between rows.
+// Left of the band F = NEG - 1 and Hno = NEG, as in the plain version.
+constexpr int kAhead = 8;
+
+constexpr int kFar = -(1 << 30);  // a decay that no scan value survives
+
+// The substitution scores of read code r (0-4) as a 20-bit table: nibble w
+// is s(r, w) as a signed 4-bit value, 2 (match), -3 (mismatch, 0xD), -1
+// (either code 4, 0xF); as in sw_score_kernel.
+__constant__ unsigned kSubstTable[5] = {0xFDDD2u, 0xFDD2Du, 0xFD2DDu,
+                                        0xF2DDDu, 0xFFFFFu};
+
+// One C-byte store of a lane's packed bytes (lo: cells 0-3, hi: 4-7).
+template <int C>
+__device__ __forceinline__ void store_bytes(uint8_t* p, unsigned lo,
+                                            unsigned hi) {
+  if constexpr (C == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(lo, hi);
+  } else if constexpr (C == 4) {
+    *reinterpret_cast<unsigned*>(p) = lo;
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)lo;
+  } else {
+    *p = (uint8_t)lo;
+  }
+}
+
+template <int C, int G, bool kFit>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sw_dp_kernel(const int8_t* __restrict__ reads,
+             const int32_t* __restrict__ rlens,
+             const int8_t* __restrict__ windows, uint8_t* __restrict__ tb,
+             int32_t* __restrict__ score, int32_t* __restrict__ best_i,
+             int32_t* __restrict__ best_b, int B, int L, int W) {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: 2^k <= 32");
+  static_assert(C == 1 || C == 2 || C == 4 || C == 8, "C: 1, 2, 4 or 8");
+  constexpr int kPerWarp = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int g = lane % G;
+  const long long c =
+      ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) *
+          kPerWarp + lane / G;
+  // lanes past B run candidate B-1 for the shuffles and store nothing
+  const bool valid = c < B;
+  const long long cc = valid ? c : B - 1;
+  const int rl = valid ? rlens[cc] : 0;
+  const int8_t* rrow = reads + cc * L;
+  const int8_t* wrow = windows + cc * (long long)(L + W);
+  const int b0 = g * C;
+  const bool top = b0 + C >= W;  // cell b0 + C is out of the band
+  const bool store = valid && (kFit || b0 < W);
+  uint8_t* trow = tb + cc * (long long)L * W + b0;  // the next row's bytes
+  // the scan's decay per step: C * s per lane, or (from a lane outside the
+  // group, whose shuffle returns the lane's own value) so much that the
+  // add-max keeps the lane's value
+  int decay[5];
+#pragma unroll
+  for (int j = 0, s = 1; j < 5; ++j, s <<= 1)
+    decay[j] = g >= s ? -C * s : kFar;
+
+  bool live[C];
+  int H[C], Et[C], sh[C];  // sh: 28 - 4 * (window code of the cell's row)
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    live[k] = kFit || b0 + k < W;
+    H[k] = live[k] ? 0 : kNeg;
+    Et[k] = kNeg;
+    sh[k] = 28 - 4 * (live[k] ? (int)wrow[b0 + k] : 4);
+  }
+  // the window byte of the last cell (dead lanes: of the band's last cell)
+  const uint8_t* wlast =
+      reinterpret_cast<const uint8_t*>(wrow) + min(b0 + C - 1, W - 1);
+  const uint8_t* rbyte = reinterpret_cast<const uint8_t*>(rrow);
+  // the lane's best cell: key H * 32 + 31 - b and its row (C 1: the band
+  // is the lane's, so the key is H alone until the end)
+  int bkey = C == 1 ? 0 : 31, bi = 0;
+
+  // row i from its substitution table T (kSubstTable of its read code)
+  // and the last cell's window code of row i+1
+  auto row = [&](const int i, const unsigned T, const int wnext) {
+    const int hu = __shfl_down_sync(kFull, H[0], 1, G);
+    int eu = __shfl_down_sync(kFull, Et[0], 1, G);
+    // the top cell's "up" is outside the band: kFar takes hu out of its
+    // E, and eu is kNeg (C 1: the lane's own or a dead lane's Et, kNeg
+    // already), so its Et stays kNeg
+    if (C > 1 && top) eu = kNeg;
+    const int xoff = top ? kFar : i - (kGapOpen + kGapExt);
+    int Etn[C], Hno[C], S[C], M[C];
+    bool eb[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const bool last = k + 1 == C;
+      const int hup = last ? hu : H[k + 1];
+      const int eup = last ? eu : Et[k + 1];
+      Etn[k] = __viaddmax_s32(hup, last ? xoff : i - (kGapOpen + kGapExt),
+                              eup);
+      // e_ext > e_open (at the top cell NEG - 1 > NEG - 3)
+      eb[k] = (last && top) || eup - hup > i - (kGapOpen + kGapExt);
+      const int s = (int)(T << sh[k]) >> 28;
+      M[k] = H[k] + s;
+      Hno[k] = __viaddmax_s32_relu(Etn[k], -i, M[k]);
+      // F + 3 of the next cell from this lane's cells
+      S[k] = k == 0 ? Hno[0] : __viaddmax_s32(S[k - 1], -1, Hno[k]);
+    }
+    // v: F + 3 entering the lane's first cell (C > 1), or of the cell
+    // after it (C 1: the scan runs inclusive, which needs no shift, and
+    // H = max(Hno, F of the next cell + 1)); hl: Hno of the cell before
+    int v = C == 1 ? S[0] : __shfl_up_sync(kFull, S[C - 1], 1, G);
+    int hl = C == 1 ? 0 : __shfl_up_sync(kFull, Hno[C - 1], 1, G);
+    if (C > 1 && g == 0) {
+      v = kNeg + 2;  // F = NEG - 1 left of the band
+      hl = kNeg;
+    }
+#pragma unroll
+    for (int j = 0, s = 1; s < G; ++j, s <<= 1)
+      v = __viaddmax_s32(__shfl_up_sync(kFull, v, s, G), decay[j], v);
+    unsigned lo = 0, hi = 0;
+    int rowkey = 0;
+    int fb1 = 0;
+    if (C == 1) {  // F > f_open of the next cell, from this one
+      fb1 = __shfl_up_sync(kFull, v > Hno[0], 1, G);
+      if (g == 0) fb1 = 1;
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      int h;
+      unsigned fb;
+      if (C == 1) {
+        h = __viaddmax_s32(v, -2, Hno[0]);
+        fb = fb1;
+      } else {
+        // F + 3 + k
+        const int fk = k == 0 ? v : __viaddmax_s32(S[k - 1], k, v);
+        h = __viaddmax_s32(fk, -(k + 3), Hno[k]);
+        const int hprev = k == 0 ? hl : Hno[k - 1];
+        fb = fk > hprev + k;  // F > f_open
+      }
+      // the choice, 0 if H is 0, else 1 if M is H, else 2 if E is H, else
+      // 3: bit 0 is H != 0 and (M is H or E is not H), bit 1 H != 0 and M
+      // is not H
+      const bool nz = h != 0, is_m = M[k] == h, is_e = Etn[k] == h + i;
+      const unsigned byte = (nz && (is_m || !is_e) ? 1u : 0u) |
+                            (nz && !is_m ? 2u : 0u) | (eb[k] ? 4u : 0u) |
+                            (fb << 3);
+      if (k < 4)
+        lo |= byte << (8 * k);
+      else
+        hi |= byte << (8 * (k - 4));
+      int e = Etn[k];
+      if (!kFit && !live[k]) {
+        h = kNeg;
+        e = kNeg;
+      }
+      const int key = C == 1 ? h : h * 32 - k;
+      rowkey = k == 0 ? key : max(rowkey, key);
+      H[k] = h;
+      Et[k] = e;
+    }
+    if (store) store_bytes<C>(trow, lo, hi);
+    trow += W;
+    if (C == 1) {
+      if (i <= rl && rowkey > bkey) {
+        bkey = rowkey;
+        bi = i;
+      }
+    } else {
+      rowkey += 31 - b0;
+      if (i <= rl && rowkey > (bkey | 31)) {
+        bkey = rowkey;
+        bi = i;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k + 1 < C; ++k) sh[k] = sh[k + 1];
+    sh[C - 1] = 28 - 4 * wnext;
+  };
+
+  // rc: substitution table of row i0 + u; wc: the last cell's window code
+  // of row i0 + u + 1 (one new byte a row); rn, wn: the codes kAhead rows
+  // later.  Whole blocks of kAhead rows run with no branch between rows;
+  // while the next block lies inside the read (rows up to L - 1), its
+  // loads need no bounds.
+  unsigned rc[kAhead];
+  int wc[kAhead];
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) {
+    const int i = 1 + u;
+    rc[u] = kSubstTable[i <= L ? min((int)rbyte[i - 1], 4) : 4];
+    wc[u] = i < L ? wlast[i] : 4;
+  }
+  auto block = [&](const int i0, const bool bounded) {
+    int rn[kAhead], wn[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int i = i0 + kAhead + u;
+      rn[u] = !bounded || i <= L ? rbyte[i - 1] : 4;
+      wn[u] = !bounded || i < L ? wlast[i] : 4;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) row(i0 + u, rc[u], wc[u]);
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      rc[u] = kSubstTable[min(rn[u], 4)];
+      wc[u] = wn[u];
+    }
+  };
+  int i0 = 1;
+  for (; i0 + 2 * kAhead <= L; i0 += kAhead) block(i0, false);
+  for (; i0 + kAhead - 1 <= L; i0 += kAhead) block(i0, true);
+#pragma unroll
+  for (int u = 0; u + 1 < kAhead; ++u)  // the last L % kAhead rows
+    if (i0 + u <= L) row(i0 + u, rc[u], wc[u]);
+  if (C == 1) bkey = bi ? bkey * 32 + 31 - b0 : 31;
+  int sc = bkey >> 5;
+  int sec = (bi << 5) | (31 - (bkey & 31));  // row, band
+#pragma unroll
+  for (int s = G / 2; s > 0; s >>= 1) {
+    const int osc = __shfl_xor_sync(kFull, sc, s, G);
+    const int osec = __shfl_xor_sync(kFull, sec, s, G);
+    if (osc > sc || (osc == sc && osec < sec)) {
+      sc = osc;
+      sec = osec;
+    }
+  }
+  if (valid && g == 0) {
+    score[c] = sc;
+    best_i[c] = sec >> 5;
+    best_b[c] = sec & 31;
+  }
 }
 
 // sw_traceback_kernel.
@@ -548,15 +724,38 @@ int tb_plan(int device, int L, int W, TbPlan* out) {
   return 0;
 }
 
-template <int C, int G, bool kFit>
-int launch_score(const int8_t* reads, const int32_t* rlens,
-                 const int8_t* windows, int32_t* score, int B, int L, int W,
-                 cudaStream_t stream) {
-  constexpr int kPerBlock = kWarpsPerBlock * 32 / G;
-  sw_score_kernel<C, G, kFit><<<blocks_for(B, kPerBlock),
-                                kWarpsPerBlock * 32, 0, stream>>>(
-      reads, rlens, windows, score, B, L, W);
-  return (int)cudaGetLastError();
+// A layout of the score and dp kernels: C cells a lane, G lanes a
+// candidate; kFit: C * G == W.
+template <int C_, int G_, bool kFit_>
+struct Layout {
+  static constexpr int C = C_;
+  static constexpr int G = G_;
+  static constexpr bool kFit = kFit_;
+};
+
+// launch(Layout<C, G, kFit>{}) for `cells` per lane at band width W: 1, 2,
+// 4 or 8 at W 16 and 32, 1 at other widths up to 32; else
+// cudaErrorInvalidValue.
+template <class F>
+int with_layout(int W, int cells, F launch) {
+  if (W == 32) {
+    switch (cells) {
+      case 1: return launch(Layout<1, 32, true>{});
+      case 2: return launch(Layout<2, 16, true>{});
+      case 4: return launch(Layout<4, 8, true>{});
+      case 8: return launch(Layout<8, 4, true>{});
+    }
+  } else if (W == 16) {
+    switch (cells) {
+      case 1: return launch(Layout<1, 16, true>{});
+      case 2: return launch(Layout<2, 8, true>{});
+      case 4: return launch(Layout<4, 4, true>{});
+      case 8: return launch(Layout<8, 2, true>{});
+    }
+  } else if (W >= 1 && W <= 32 && cells == 1) {
+    return launch(Layout<1, 32, false>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Cells per lane when the caller leaves it to the kernel: the most that
@@ -576,6 +775,20 @@ int default_cells(int W, long long B, int sms) {
   return 1;
 }
 
+// The dp kernel's cells per lane when the caller leaves it to the kernel:
+// the fewest that still run every candidate in one block per SM.  Fewer
+// cells a lane give a shorter row chain and fewer operations per row for
+// each warp to issue; a second block on an SM doubles what its warps
+// issue per row, which costs more than more cells a lane.  chip_smoke.py
+// times every layout; on an H100 at W 32 each layout's time was flat up to
+// one block per SM and stepped up past it.
+int default_dp_cells(int W, long long B, int sms) {
+  if (W != 16 && W != 32) return 1;
+  for (int c = 1; c < 8; c <<= 1)
+    if (blocks_for(B, kWarpsPerBlock * 32 * c / W) <= sms) return c;
+  return 8;
+}
+
 int sw_score(const int8_t* reads, const int32_t* rlens, const int8_t* windows,
              int32_t* score, int B, int L, int W, int cells, int device,
              void* stream) {
@@ -588,33 +801,36 @@ int sw_score(const int8_t* reads, const int32_t* rlens, const int8_t* windows,
     if (err) return err;
     cells = default_cells(W, B, d.sms);
   }
-  if (W == 32) {
-    switch (cells) {
-      case 1: return launch_score<1, 32, true>(reads, rlens, windows, score,
-                                               B, L, W, s);
-      case 2: return launch_score<2, 16, true>(reads, rlens, windows, score,
-                                               B, L, W, s);
-      case 4: return launch_score<4, 8, true>(reads, rlens, windows, score,
-                                              B, L, W, s);
-      case 8: return launch_score<8, 4, true>(reads, rlens, windows, score,
-                                              B, L, W, s);
-    }
-  } else if (W == 16) {
-    switch (cells) {
-      case 1: return launch_score<1, 16, true>(reads, rlens, windows, score,
-                                               B, L, W, s);
-      case 2: return launch_score<2, 8, true>(reads, rlens, windows, score,
-                                              B, L, W, s);
-      case 4: return launch_score<4, 4, true>(reads, rlens, windows, score,
-                                              B, L, W, s);
-      case 8: return launch_score<8, 2, true>(reads, rlens, windows, score,
-                                              B, L, W, s);
-    }
-  } else if (W >= 1 && W <= 32 && cells == 1) {
-    return launch_score<1, 32, false>(reads, rlens, windows, score, B, L, W,
-                                      s);
+  return with_layout(W, cells, [&](auto layout) {
+    using Lt = decltype(layout);
+    sw_score_kernel<Lt::C, Lt::G, Lt::kFit>
+        <<<blocks_for(B, kWarpsPerBlock * 32 / Lt::G), kWarpsPerBlock * 32, 0,
+           s>>>(reads, rlens, windows, score, B, L, W);
+    return (int)cudaGetLastError();
+  });
+}
+
+int sw_dp(const int8_t* reads, const int32_t* rlens, const int8_t* windows,
+          uint8_t* tb, int32_t* score, int32_t* best_i, int32_t* best_b,
+          int B, int L, int W, int cells, int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
+  const cudaStream_t s = (cudaStream_t)stream;
+  // C-byte stores need a tb aligned to 8 bytes (torch.empty's is)
+  if (((uintptr_t)tb & 7) != 0) return (int)cudaErrorMisalignedAddress;
+  if (cells == 0) {
+    DeviceInfo d;
+    const int err = device_info(device, &d);
+    if (err) return err;
+    cells = default_dp_cells(W, B, d.sms);
   }
-  return (int)cudaErrorInvalidValue;
+  return with_layout(W, cells, [&](auto layout) {
+    using Lt = decltype(layout);
+    sw_dp_kernel<Lt::C, Lt::G, Lt::kFit>
+        <<<blocks_for(B, kWarpsPerBlock * 32 / Lt::G), kWarpsPerBlock * 32, 0,
+           s>>>(reads, rlens, windows, tb, score, best_i, best_b, B, L, W);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -640,12 +856,18 @@ int ag_sw_score_cells(const int8_t* reads, const int32_t* rlens,
 int ag_sw_dp(const int8_t* reads, const int32_t* rlens, const int8_t* windows,
              uint8_t* tb, int32_t* score, int32_t* best_i, int32_t* best_b,
              int B, int L, int W, int device, void* stream) {
-  DeviceGuard guard(device);
-  if (guard.error()) return guard.error();
-  sw_dp_kernel<<<blocks_for(B, kWarpsPerBlock), kWarpsPerBlock * 32, 0,
-                 (cudaStream_t)stream>>>(reads, rlens, windows, tb, score,
-                                         best_i, best_b, B, L, W);
-  return (int)cudaGetLastError();
+  return sw_dp(reads, rlens, windows, tb, score, best_i, best_b, B, L, W, 0,
+               device, stream);
+}
+
+// ag_sw_dp with the cells per lane named, as ag_sw_score_cells: 1, 2, 4 or
+// 8 for W 16 and 32, 1 for other widths; 0 leaves it to the kernel.
+int ag_sw_dp_cells(const int8_t* reads, const int32_t* rlens,
+                   const int8_t* windows, uint8_t* tb, int32_t* score,
+                   int32_t* best_i, int32_t* best_b, int B, int L, int W,
+                   int cells, int device, void* stream) {
+  return sw_dp(reads, rlens, windows, tb, score, best_i, best_b, B, L, W,
+               cells, device, stream);
 }
 
 int ag_sw_traceback(const uint8_t* tb, const int32_t* best_i,

@@ -36,6 +36,8 @@ ARGTYPES = {
     # reads, rlens, windows, tb, score, best_i, best_b, B, L, W, device,
     # stream
     "ag_sw_dp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same, then cells per lane, device, stream
+    "ag_sw_dp_cells": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # tb, best_i, best_b, g0, pos_map, B, L, W, pad, max_steps, device,
     # stream
     "ag_sw_traceback": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

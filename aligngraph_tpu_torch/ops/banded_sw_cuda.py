@@ -96,9 +96,18 @@ def _dev_stream(device: torch.device):
     return device.index, torch.cuda.current_stream(device).cuda_stream
 
 
-# cells per lane the score kernel is built for, by band width; other widths
-# run one cell a lane
-SCORE_CELLS = {16: (1, 2, 4, 8), 32: (1, 2, 4, 8)}
+# cells per lane the score and dp kernels are built for, by band width
+# (csrc/banded_sw.cu: with_layout); other widths run one cell a lane
+SCORE_CELLS = DP_CELLS = {16: (1, 2, 4, 8), 32: (1, 2, 4, 8)}
+
+
+def _check_layout(cells_per_lane: Optional[int], pad: int) -> None:
+    """Raises unless `cells_per_lane` is None or a layout built for the
+    band width 2*pad."""
+    built = DP_CELLS.get(2 * pad, (1,))
+    if cells_per_lane is not None and cells_per_lane not in built:
+        raise ValueError(f"cells_per_lane {cells_per_lane} is not built for "
+                         f"band width {2 * pad}: {built}")
 
 
 def sw_score_cuda(reads, rlens, windows, pad: int,
@@ -107,11 +116,8 @@ def sw_score_cuda(reads, rlens, windows, pad: int,
     version is banded_sw(...).score).  `cells_per_lane` names the kernel's
     layout (SCORE_CELLS; for measuring them): None leaves it to the
     kernel."""
+    _check_layout(cells_per_lane, pad)
     B, L, W = _check_dp_inputs(reads, rlens, windows, pad)
-    if cells_per_lane is not None and \
-            cells_per_lane not in SCORE_CELLS.get(W, (1,)):
-        raise ValueError(f"cells_per_lane {cells_per_lane} is not built for "
-                         f"band width {W}: {SCORE_CELLS.get(W, (1,))}")
     score = torch.empty(B, dtype=torch.int32, device=reads.device)
     if B:
         lib = _build.load_library()
@@ -126,10 +132,13 @@ def sw_score_cuda(reads, rlens, windows, pad: int,
     return score
 
 
-def sw_dp_cuda(reads, rlens, windows, pad: int):
+def sw_dp_cuda(reads, rlens, windows, pad: int,
+               cells_per_lane: Optional[int] = None):
     """Banded DP with traceback bytes -> (tb [B, L, W] uint8, score,
     best_i, best_b [B] int32).  The tb layout is the kernel's: each lane's
-    rows are contiguous."""
+    rows are contiguous.  `cells_per_lane` names the kernel's layout
+    (DP_CELLS; for measuring them): None leaves it to the kernel."""
+    _check_layout(cells_per_lane, pad)
     B, L, W = _check_dp_inputs(reads, rlens, windows, pad)
     dev = reads.device
     tb = torch.empty((B, L, W), dtype=torch.uint8, device=dev)
@@ -138,11 +147,14 @@ def sw_dp_cuda(reads, rlens, windows, pad: int):
     best_b = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         lib = _build.load_library()
-        _launch("dp", L, B, lib.ag_sw_dp, reads.data_ptr(),
-                rlens.data_ptr(), windows.data_ptr(), tb.data_ptr(),
-                score.data_ptr(),
-                best_i.data_ptr(), best_b.data_ptr(), B, L, W,
-                *_dev_stream(dev))
+        args = (reads.data_ptr(), rlens.data_ptr(), windows.data_ptr(),
+                tb.data_ptr(), score.data_ptr(), best_i.data_ptr(),
+                best_b.data_ptr(), B, L, W)
+        if cells_per_lane is None:
+            _launch("dp", L, B, lib.ag_sw_dp, *args, *_dev_stream(dev))
+        else:
+            _launch("dp", L, B, lib.ag_sw_dp_cells, *args, cells_per_lane,
+                    *_dev_stream(dev))
     return tb, score, best_i, best_b
 
 

@@ -16,10 +16,13 @@ Phases, one line each, any failure raises (non-zero exit):
      partial and length-0 tiles), and where the kernels take their other
      layouts: pad 5 (one score cell a lane, tb staged by byte copies), L
      4,000 (one staging buffer a warp) and L 8,000 (tb walked in global
-     memory).  Every layout of the score kernel (cells per lane) is
-     checked, and timed at L 100 and L 512.  Everything is integer:
-     tolerance 0.  CUDA-event times, kernel vs plain, and each kernel's
-     bound (bytes or operations on these inputs) per shape.
+     memory).  Every layout (cells per lane) of the score and dp kernels
+     is checked at every shape; the score layouts are timed at L 100 and
+     L 512 (SCORE_SWEEP), the dp layouts and the traceback at the lanes a
+     launch carries on the paths and at full batches (DP_SWEEP).
+     Everything is integer: tolerance 0.  CUDA-event times, kernel vs
+     plain, and each kernel's bound (bytes or operations on these inputs)
+     per shape.
   4. read aligner: ReadAligner.build(..., device="cuda").align on the
      benchmark workload (4.6 Mb genome, 100,000 pairs of 100 bp, insert
      500, 1% SNPs, seed 0, batch_pairs 32,768); 3 timed runs after a
@@ -225,6 +228,11 @@ def kernel_results() -> dict:
 # lanes the score kernel's layouts are timed at, by shape
 SCORE_SWEEP = {"L100 pad16": (2_048, 8_192, 32_768, B_SCORE),
                "L512 pad16": (B_TILE,)}
+# lanes the dp kernel's layouts (and the traceback) are timed at: about
+# the mean lanes of a launch on the read aligner's path (6,888 in 12
+# launches, L 100: 576) and on the pipeline's (3,086 in 10, L 512: 320),
+# and the full batches
+DP_SWEEP = {"L100 pad16": (576, B_DP), "L512 pad16": (320, B_TILE)}
 
 
 def check_kernels(results: dict, card: dict) -> None:
@@ -255,6 +263,8 @@ def check_kernels(results: dict, card: dict) -> None:
         ("L8000 pad16", lambda: dp_lanes(rng, 12, 8000, 16), 16, (), False),
     ]
     cells_ms: dict = {}
+    dp_cells_ms: dict = {}
+    sweep: dict = {"dp": {}, "traceback": {}}
     for label, make, pad, timed, score_only in cases:
         reads, rlens, windows, g0 = (torch.from_numpy(a).cuda()
                                      for a in make())
@@ -307,6 +317,17 @@ def check_kernels(results: dict, card: dict) -> None:
             torch.cuda.synchronize()
             err_fast = max(max_err(s_f, s_p), max_err(pm_f, pm_p))
             errs["traceback"] = max(err_tb, err_fast)
+            # every layout the dp kernel is built for at this band width
+            dp_errs = {}
+            for cells in k.DP_CELLS.get(W, (1,)):
+                tb_c, s_c, bi_c, bb_c = k.sw_dp_cuda(reads, rlens, windows,
+                                                     pad, cells_per_lane=cells)
+                torch.cuda.synchronize()
+                dp_errs[cells] = max(max_err(s_c, ref.score),
+                                     max_err(bi_c, ref.best_i),
+                                     max_err(bb_c, ref.best_b),
+                                     max_err(tb_c.permute(1, 0, 2), ref.tb))
+            errs["dp"] = max(errs["dp"], *dp_errs.values())
             fns["dp"] = (lambda: k.sw_dp_cuda(reads, rlens, windows, pad),
                          plain_dp)
             fns["traceback"] = (
@@ -316,9 +337,29 @@ def check_kernels(results: dict, card: dict) -> None:
                                            g0, pad))
             n_gapped = int((ref.score > plain.gapless_diag(
                 reads, rlens, windows, pad)[0]).sum())
-            msg += (f" dp {errs['dp']} traceback {err_tb} fast-path "
-                    f"{err_fast} (gapped best {n_gapped}, longest walk "
+            msg += (f" dp {errs['dp']} (by cells per lane: {dp_errs}) "
+                    f"traceback {err_tb} fast-path {err_fast} (gapped best "
+                    f"{n_gapped}, longest walk "
                     f"{int((pm_ref >= 0).sum(dim=1).max())})")
+            # dp at each layout and the traceback, on the first n lanes
+            for n in (DP_SWEEP[label] if "dp" in timed else ()):
+                key = f"{label} {n} lanes"
+                nb = kernel_bounds(card, reads[:n], rlens[:n], W,
+                                   ref.best_i[:n], pm_ref[:n])
+                dp_cells_ms[key] = {
+                    cells: cuda_ms(lambda: k.sw_dp_cuda(
+                        reads[:n], rlens[:n], windows[:n], pad,
+                        cells_per_lane=cells), 20)
+                    for cells in k.DP_CELLS.get(W, (1,))}
+                sweep["dp"][key] = {
+                    "lanes": n, "ms": cuda_ms(lambda: k.sw_dp_cuda(
+                        reads[:n], rlens[:n], windows[:n], pad), 20),
+                    **nb["dp"]}
+                sweep["traceback"][key] = {
+                    "lanes": n, "ms": cuda_ms(lambda: k.sw_traceback_cuda(
+                        tb_k[:n], res.best_i[:n], res.best_b[:n], g0[:n],
+                        pad), 20),
+                    **nb["traceback"]}
         for name, err in errs.items():
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                                err)
@@ -342,6 +383,20 @@ def check_kernels(results: dict, card: dict) -> None:
     results["score"]["cells_ms"] = {
         label: {str(c): t for c, t in by_cells.items()}
         for label, by_cells in cells_ms.items()}
+    for label, by_cells in dp_cells_ms.items():
+        d, t = sweep["dp"][label], sweep["traceback"][label]
+        phase("kernels", f"sw_dp_kernel {label} by cells per lane: "
+              + ", ".join(f"C {c}: {ms:.4f} ms" for c, ms in by_cells.items())
+              + f"; as launched {d['ms']:.4f} ms, bound {d['bound_ms']:.4f}"
+              f" ms ({d['bound_by']}), {d['bound_ms'] / d['ms']:.3f} of it; "
+              f"sw_traceback_kernel {t['ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.3f} of it")
+    results["dp"]["cells_ms"] = {
+        label: {str(c): t for c, t in by_cells.items()}
+        for label, by_cells in dp_cells_ms.items()}
+    for name, by_label in sweep.items():
+        results[name]["sweep"] = by_label
     for n, r in results.items():
         main = r["shapes"]["L100 pad16"]
         for key in ("ms", "plain_ms", "bound_ms", "bound_by"):

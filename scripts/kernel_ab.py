@@ -9,11 +9,13 @@ process of its own that builds that checkout's kernels (nvcc, into its
 aligngraph_tpu_torch/_build/) and times each kernel at the main path's
 shapes on the same seeded inputs (chip_smoke.py's dp_lanes and the
 workload's tile_lanes): sw_score_kernel at L 100, pad 16, 98,304 lanes and
-L 512, pad 16, 2,048 lanes; sw_dp_kernel and sw_traceback_kernel at L 100,
-4,096 lanes and L 512, 2,048 lanes.  Times are chip_smoke.cuda_ms: CUDA
-events around `reps` launches queued behind a sleep of the stream, so they
-are the device's time.  Prints one JSON line per turn, then the card's
-name and power limit.
+L 512, pad 16, 2,048 lanes; sw_dp_kernel and sw_traceback_kernel on the
+first n lanes of L 100, pad 16, 4,096 lanes and L 512, pad 16, 2,048
+lanes, for each n of chip_smoke.DP_SWEEP (576 and 4,096; 320 and 2,048),
+with the layout each checkout's kernel picks.  Times are
+chip_smoke.cuda_ms: CUDA events around `reps` launches queued behind a
+sleep of the stream, so they are the device's time.  Prints one JSON line
+per turn, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -47,13 +49,21 @@ shapes = [("L100 pad16", lambda: cs.dp_lanes(rng, 98_304, 100, 16), 16,
            ("score", "dp", "traceback"))]
 for label, make, pad, names in shapes:
     reads, rlens, windows, g0 = (torch.from_numpy(a).cuda() for a in make())
+    B = reads.shape[0]
+    if "score" in names:
+        out[f"score {label} {B} lanes"] = cs.cuda_ms(
+            lambda: k.sw_score_cuda(reads, rlens, windows, pad), reps)
+    if "dp" not in names:
+        continue
     tb, _, best_i, best_b = k.sw_dp_cuda(reads, rlens, windows, pad)
-    fns = {"score": lambda: k.sw_score_cuda(reads, rlens, windows, pad),
-           "dp": lambda: k.sw_dp_cuda(reads, rlens, windows, pad),
-           "traceback": lambda: k.sw_traceback_cuda(tb, best_i, best_b, g0,
-                                                    pad)}
-    for n in names:
-        out[f"{n} {label} {reads.shape[0]} lanes"] = cs.cuda_ms(fns[n], reps)
+    # the first n lanes; the parent's sw_dp_cuda takes no layout
+    for n in cs.DP_SWEEP[label]:
+        out[f"dp {label} {n} lanes"] = cs.cuda_ms(
+            lambda: k.sw_dp_cuda(reads[:n], rlens[:n], windows[:n], pad),
+            reps)
+        out[f"traceback {label} {n} lanes"] = cs.cuda_ms(
+            lambda: k.sw_traceback_cuda(tb[:n], best_i[:n], best_b[:n],
+                                        g0[:n], pad), reps)
 print(json.dumps(out), flush=True)
 """
 

@@ -213,6 +213,8 @@ WRAPPERS = {
     "sw_score_cuda": lambda r, n, w, g: banded_sw_cuda.sw_score_cuda(
         r, n, w, 8),
     "sw_dp_cuda": lambda r, n, w, g: banded_sw_cuda.sw_dp_cuda(r, n, w, 8),
+    "sw_dp_cuda_cells": lambda r, n, w, g: banded_sw_cuda.sw_dp_cuda(
+        r, n, w, 8, cells_per_lane=4),
     "sw_traceback_cuda": lambda r, n, w, g: banded_sw_cuda.sw_traceback_cuda(
         torch.zeros((r.shape[0], r.shape[1], 16), dtype=torch.uint8), n, n,
         g, 8),
@@ -231,6 +233,19 @@ def test_cuda_wrappers_raise_on_cpu_tensors(name):
     before = dict(banded_sw_cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensor"):
         WRAPPERS[name](reads, rlens, wins, g0)
+    assert banded_sw_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("pad,cells", [(8, 3), (8, 16), (16, 0), (5, 2)])
+def test_sw_dp_cuda_rejects_unbuilt_layout(pad, cells):
+    """A cells_per_lane not in DP_CELLS for the band width raises before
+    any launch (and before the tensors are looked at)."""
+    assert cells not in banded_sw_cuda.DP_CELLS.get(2 * pad, (1,))
+    reads, rlens, wins, _ = _t(*posmap_batch(1, 8, 30, pad, 0.0, 5))
+    before = dict(banded_sw_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="not built for band width"):
+        banded_sw_cuda.sw_dp_cuda(reads, rlens, wins, pad,
+                                  cells_per_lane=cells)
     assert banded_sw_cuda.LAUNCHES == before
 
 
