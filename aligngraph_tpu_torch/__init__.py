@@ -14,6 +14,14 @@ reassembly pipeline with its aligners on one device:
   align/read_aligner.py   ReadAligner (the bowtie2 replacement)
   align/contig_aligner.py ContigAligner (the BLAT/NUCMER replacement)
   parallel/coverage.py    span_coverage (misassembly removal's coverage)
+                          and its position-sharded form
+  parallel/mesh.py        torch.distributed process groups (NCCL on cuda,
+                          gloo on cpu), the rank launcher run_ranks and
+                          the data-parallel read aligner
+  parallel/halo.py        halo exchange between position blocks
+  parallel/kmer_shard.py  the k-mer layer build, position-sharded
+  dryrun.py               python -m aligngraph_tpu_torch.dryrun: every
+                          multi-device path once on tiny shapes
   graph/kmer_layer_jit.py the k-mer layer build on the device
                           (build_kmer_layer_device, cfg.graph_build
                           "device"): torch sorts, scans and scatters

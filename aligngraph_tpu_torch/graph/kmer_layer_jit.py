@@ -103,13 +103,15 @@ def _run_starts(*cols):
 # phase 1: tuple emission (oracle emit_tuples semantics, JAX :53)
 # ----------------------------------------------------------------------
 
-def _emit_tuples(p1, p2, s1, lens, keep, k: int):
+def _emit_tuples(p1, p2, s1, lens, keep, k: int, rec0: int = 0):
     """The valid tuples of one chunk, in the order of the JAX build's
     concatenation (stream A cells, stream B cells, stream C bridges, each
     record-major): dict of [T] int32 tensors, `arrival` int64.
 
     p1, p2: [M, L] int32 part-local positions (-1 unaligned); s1 [M, L]
-    int8; lens [M] int32; keep [M] bool."""
+    int8; lens [M] int32; keep [M] bool.  rec0: the index of the first
+    record within its chunk (a rank's slice of the chunk in the sharded
+    build), so that arrival orders tuples across the whole chunk."""
     M, L = p1.shape
     Lk = L - k
     dev = p1.device
@@ -149,7 +151,7 @@ def _emit_tuples(p1, p2, s1, lens, keep, k: int):
     packs = torch.cat([pk, torch.zeros((M, k - 1), dtype=I32, device=dev)],
                       1)
 
-    rec = torch.arange(M, dtype=I64, device=dev)[:, None]
+    rec = torch.arange(rec0, rec0 + M, dtype=I64, device=dev)[:, None]
     cell_arr = (rec * L + i_idx) * 4                 # [M, Lk] int64
 
     ns_len_np = torch.minimum(npp + k, lens[:, None]) - npp
@@ -376,14 +378,19 @@ def _rounds(state, grp, n_pos: int, win: int):
 # phase 5: edges (JAX :413-503)
 # ----------------------------------------------------------------------
 
-def _edges(state, tup, valid1, valid2, slot1, slot2, n_pos: int, win: int):
-    """Append this chunk's new edges to the state in place; returns
-    dropped_edges as a device scalar.
+ANCHORS = ("km_contig", "km_coff", "km_contig0", "km_coff0")
+
+
+def _edge_candidates(tup, valid1, valid2, slot1, slot2):
+    """This chunk's edge candidates: one per (k1 row, k2 row) pair of a
+    tuple whose rows both got a slot.  Returns (sp, ss, dp, ds, ea) as
+    int64 tensors (source position and slot, destination position and
+    slot, arrival key) and the [NC, T] grid index (b, t) of each
+    candidate's k2 row.
 
     valid1/valid2: [NC, T] combo grids of the k1/k2 rows; slot1/slot2:
     [NC, T] slot of each valid combo row (-1 elsewhere)."""
     T = tup["cur"].numel()
-    dev = tup["cur"].device
     rank_a = torch.cumsum(valid1, 0) - 1
     rank_b = torch.cumsum(valid2, 0) - 1
     ev = (slot1 >= 0)[:, None, :] & (slot2 >= 0)[None, :, :]  # [a, b, T]
@@ -395,22 +402,29 @@ def _edges(state, tup, valid1, valid2, slot1, slot2, n_pos: int, win: int):
     ss = slot1[a, t]
     ds = slot2[b, t]
     ea = tup["arrival"][t] * (NC * NC) + rank_a[a, t] * NC + rank_b[b, t]
+    return (sp, ss, dp, ds, ea), (b, t)
 
+
+def _append_edges(state, sp, ss, dp, ds, ea, dst, n_pos: int, win: int):
+    """Append the new edges among the candidates to the state in place;
+    returns dropped_edges as a device scalar.  Every candidate's source
+    position lies in the state's rows [0, n_pos); dst holds the
+    destination slots' anchors, one tensor per field of ANCHORS, so the
+    destination position need not be in this state."""
+    dev = sp.device
     # dedup by (sp, ss, dp, ds), keeping the first arrival
     o = _lex_order([sp, ss, dp, ds, ea])
-    sp, ss, dp, ds, ea = sp[o], ss[o], dp[o], ds[o], ea[o]
-    u = _run_starts(sp, ss, dp, ds).nonzero().squeeze(1)
+    u = o[_run_starts(sp[o], ss[o], dp[o], ds[o]).nonzero().squeeze(1)]
     sp, ss, dp, ds, ea = sp[u], ss[u], dp[u], ds[u], ea[u]
+    dst = [d[u] for d in dst]
 
     # the contig-anchor edge gate between the two slot k-mers (no
     # genome-anchor clause, AlignGraph.cpp:1600-1615), then the
     # existing-edge check against prior chunks
     spc = sp.clamp(0, n_pos - 1)
-    dpc = dp.clamp(0, n_pos - 1)
-    anchors = ("km_contig", "km_coff", "km_contig0", "km_coff0")
     none = torch.full_like(sp, -1)
-    ok = _compat(*(state[f][spc, ss] for f in anchors), none,
-                 *(state[f][dpc, ds] for f in anchors), none, win)
+    ok = _compat(*(state[f][spc, ss] for f in ANCHORS), none, *dst, none,
+                 win)
     ed_cnt, ed_pos, ed_item = (state[f] for f in ("ed_cnt", "ed_pos",
                                                   "ed_item"))
     have = ed_cnt[spc, ss]
@@ -441,13 +455,12 @@ def _edges(state, tup, valid1, valid2, slot1, slot2, n_pos: int, win: int):
 # the per-chunk update
 # ----------------------------------------------------------------------
 
-def _chunk_update(state, cmpack, p1, p2, s1, lens, keep, *, k: int,
-                  win: int, n_pos: int, mark=None):
-    """One chunk of records into the device state (in place).  Returns
-    (tuples, rows, groups) as ints and (dropped_slots, dropped_edges) as
-    device scalars.  mark(name), when given, is called after each phase
-    ("emit": emission and expansion, "group", "rounds", "edges")."""
-    tup = _emit_tuples(p1, p2, s1, lens, keep, k)
+def _emit_rows(cmpack, n_pos: int, p1, p2, s1, lens, keep, k: int,
+               rec0: int = 0):
+    """Phases 1-2 on one chunk (or a rank's slice of it, records from
+    rec0 on): (tuples, rows: the k1 rows then the k2 rows, the [NC, T]
+    combo grids valid1 and valid2, the number of k1 rows)."""
+    tup = _emit_tuples(p1, p2, s1, lens, keep, k, rec0)
     k1, valid1 = _expand(cmpack, n_pos, tup["cur"], tup["mate_cur"],
                          tup["arrival"], 0, tup["s_pack"], tup["s_len"],
                          tup["s0"])
@@ -455,7 +468,25 @@ def _chunk_update(state, cmpack, p1, p2, s1, lens, keep, *, k: int,
                          tup["arrival"], 1, tup["ns_pack"], tup["ns_len"],
                          tup["ns0"])
     rows = {f: torch.cat([k1[f], k2[f]]) for f in ROW_FIELDS}
-    R1 = k1["pos"].numel()
+    return tup, rows, valid1, valid2, k1["pos"].numel()
+
+
+def _on_grid(vals, valid):
+    """Values of the valid combo rows (in their order) spread onto the
+    [NC, T] grid `valid`, -1 elsewhere."""
+    out = torch.full(valid.shape, -1, dtype=vals.dtype, device=vals.device)
+    out[valid] = vals
+    return out
+
+
+def _chunk_update(state, cmpack, p1, p2, s1, lens, keep, *, k: int,
+                  win: int, n_pos: int, mark=None):
+    """One chunk of records into the device state (in place).  Returns
+    (tuples, rows, groups) as ints and (dropped_slots, dropped_edges) as
+    device scalars.  mark(name), when given, is called after each phase
+    ("emit": emission and expansion, "group", "rounds", "edges")."""
+    tup, rows, valid1, valid2, R1 = _emit_rows(cmpack, n_pos, p1, p2, s1,
+                                               lens, keep, k)
     if mark:
         mark("emit")
 
@@ -470,11 +501,12 @@ def _chunk_update(state, cmpack, p1, p2, s1, lens, keep, *, k: int,
     # slot of every row, spread back onto the [NC, T] combo grids
     row_slot = torch.empty_like(gid)
     row_slot[order] = g_slot[gid]
-    slot1 = torch.full(valid1.shape, -1, dtype=I64, device=gid.device)
-    slot2 = torch.full(valid2.shape, -1, dtype=I64, device=gid.device)
-    slot1[valid1] = row_slot[:R1]
-    slot2[valid2] = row_slot[R1:]
-    dedges = _edges(state, tup, valid1, valid2, slot1, slot2, n_pos, win)
+    cand, _ = _edge_candidates(tup, valid1, valid2,
+                               _on_grid(row_slot[:R1], valid1),
+                               _on_grid(row_slot[R1:], valid2))
+    dpc, ds = cand[2].clamp(0, n_pos - 1), cand[3]
+    dedges = _append_edges(state, *cand,
+                           [state[f][dpc, ds] for f in ANCHORS], n_pos, win)
     if mark:
         mark("edges")
     return (tup["cur"].numel(), rows["pos"].numel(), grp["pos"].numel(),
@@ -490,33 +522,38 @@ STATE_FIELDS = ("km_contig", "km_coff", "km_contig0", "km_coff0", "km_mate",
                 "ed_pos", "ed_item")
 
 
-def _state_from_graph(g: GraphTensors, device):
-    """The k-mer and edge arrays of g as int32 tensors on `device` (uint32
-    arrays through their int32 view; narrower ones cross at their own
-    width and widen there), each with one sentinel row appended at index
-    n_pos for masked scatters."""
+def _state_from_graph(g: GraphTensors, device, lo: int = 0,
+                      n: Optional[int] = None):
+    """Positions [lo, lo + n) (default: all) of g's k-mer and edge arrays
+    as int32 tensors of n rows on `device` (uint32 arrays through their
+    int32 view; narrower ones cross at their own width and widen there;
+    rows past g's end are 0), each with one sentinel row appended at
+    index n for masked scatters."""
     out = {}
     for f in STATE_FIELDS:
         a = getattr(g, f)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        t = torch.zeros((a.shape[0] + 1,) + a.shape[1:], dtype=I32,
-                        device=device)
-        t[:-1] = torch.from_numpy(a).to(device)
+        rows = a.shape[0] - lo if n is None else n
+        a = a[lo:lo + rows]
+        t = torch.zeros((rows + 1,) + a.shape[1:], dtype=I32, device=device)
+        t[:a.shape[0]] = torch.from_numpy(a).to(device)
         out[f] = t
     return out
 
 
 def _state_to_graph(state, g: GraphTensors) -> None:
-    """Write the state back into g's arrays at their own dtypes, without
-    the sentinel row."""
+    """Write the first n_pos rows of the state (those of g's positions:
+    no sentinel or padding row) back into g's arrays at their own
+    dtypes."""
     for f in STATE_FIELDS:
         old = getattr(g, f)
+        rows = state[f][:old.shape[0]]
         if old.dtype == np.uint32:
-            setattr(g, f, state[f][:-1].cpu().numpy().view(np.uint32))
+            setattr(g, f, rows.cpu().numpy().view(np.uint32))
         else:
             dt = torch.from_numpy(old[:0]).dtype
-            setattr(g, f, state[f][:-1].to(dt).cpu().numpy())
+            setattr(g, f, rows.to(dt).cpu().numpy())
 
 
 def _cmpack(g: GraphTensors, device) -> torch.Tensor:

@@ -48,6 +48,23 @@ Phases, one line each, any failure raises (non-zero exit):
      (normalize = host phase 0, h2d, emit = emission and expansion, group,
      rounds, edges, d2h), and one chunk's wall, device busy time and top
      10 CUDA ops under torch.profiler.
+  multi: the multi-device paths (aligngraph_tpu_torch/parallel) in a
+     world-size-1 NCCL group started in this process (file init under
+     the temp dir, torn down at the end), on the objects of phases 4 and
+     kmer: make_sharded_aligner over phase 4's aligner on its 100,000
+     pairs equals phase 4's align in every FIELDS entry, every kernel
+     launched, the per-rank record counts sum to the all_reduce'd
+     total; make_sharded_coverage over both mates' spans of the 574,919
+     accepted records (G = 4.6 Mb) equals span_coverage;
+     sliding_window_sum_sharded of that coverage equals the plain
+     windowed sum; build_kmer_layer_sharded(..., chunk_records=16,384)
+     over the accepted records equals the kmer phase's full-size device
+     build in all 13 arrays, with stats equal to HOST_KMER_STATS (the
+     device build runs again after it, for walls in turns); then
+     `python3 -m aligngraph_tpu_torch.dryrun --nproc 1` as a subprocess
+     must exit 0.  Each wall beside nvidia-smi's name and power limit;
+     the group's first collective (NCCL's communicator start) is timed
+     on its own.  No fallback to gloo or the CPU.
   7. pipeline full: run_pipeline on "cuda" with graph_build="device" on
      the same workload, then Eval of the extended contigs against the
      target on "cuda": per-stage seconds, launches and lanes per kernel.
@@ -439,8 +456,9 @@ def require_launched(path: str, launches: dict, by_l: dict,
                              f"path: {launches}")
 
 
-def read_aligner_path(results: dict) -> None:
-    """Phases 4-5: the read aligner on the bench.py workload."""
+def read_aligner_path(results: dict) -> dict:
+    """Phases 4-5: the read aligner on the bench.py workload.  Returns the
+    aligner, the reads and the records of the first timed align."""
     from aligngraph_tpu_torch import Config, ReadAligner, Reads
     from aligngraph_tpu_torch.ops.seeding import build_index
     from aligngraph_tpu_torch.workload import make_workload
@@ -510,6 +528,7 @@ def read_aligner_path(results: dict) -> None:
             raise AssertionError(f"cuda != cpu on field {f}")
     phase("check", f"cuda == cpu on {n_chk} pairs, {got.n} records, every "
           f"field ({time.perf_counter() - t0:.1f} s)")
+    return dict(aligner=aligner, reads=reads, records=res, walls=walls)
 
 
 def pipeline_files(out: Path) -> dict:
@@ -617,16 +636,17 @@ KMER_CHUNK = 16_384
 KMER_CHUNKS = 4
 
 
-def full_workload(work: Path) -> dict:
+def full_workload(work: Path, **size) -> dict:
     """bench_pipeline.py's workload as FASTA files in work, its config
-    and its formalized inputs."""
+    and its formalized inputs (size: make_pipeline_workload's genome_len
+    and depth, for a smaller copy)."""
     from aligngraph_tpu_torch import (Config, Reads, decode,
                                       formalize_contigs, formalize_genome,
                                       write_fasta)
     from aligngraph_tpu_torch.workload import make_pipeline_workload
 
     t0 = time.perf_counter()
-    target, ref, data, lens, contig_seqs = make_pipeline_workload()
+    target, ref, data, lens, contig_seqs = make_pipeline_workload(**size)
     work.mkdir()
     write_fasta(work / "genome.fa", ["chr"], [decode(ref)])
     write_fasta(work / "target.fa", ["chr"], [decode(target)])
@@ -650,9 +670,11 @@ def full_workload(work: Path) -> dict:
     return wl
 
 
-def kmer_build(wl: dict) -> None:
+def kmer_build(wl: dict) -> dict:
     """Phase kmer: the device k-mer build against the host oracle on the
-    first 4 chunks of the full workload's accepted records."""
+    first 4 chunks of the full workload's accepted records.  Returns the
+    graph with the contig layer (g0), all accepted records (every), the
+    device build over them (g_split) and its wall."""
     import copy
     import dataclasses
 
@@ -788,6 +810,136 @@ def kmer_build(wl: dict) -> None:
     for e in ops[:10]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}",
               flush=True)
+    return dict(g0=g0, every=every, g_split=g_split, wall=wall)
+
+
+WINDOW = 5            # the multi phase's sliding window
+
+
+def window_sum_plain(x: torch.Tensor, window: int) -> torch.Tensor:
+    """out[i] = x[i] + ... + x[i + window - 1], windows past the end summing
+    what is there (int64 prefix sums)."""
+    c = torch.cat([x.new_zeros(1, dtype=torch.int64),
+                   torch.cumsum(x, 0, dtype=torch.int64)])
+    i = torch.arange(x.numel(), device=x.device)
+    return (c[(i + window).clamp(max=x.numel())] - c[i]).to(x.dtype)
+
+
+def multi_device(results: dict, ra: dict, km: dict, wl: dict,
+                 smi: str) -> None:
+    """Phase multi: the multi-device paths at world size 1 over NCCL, on
+    the objects of phases 4 and kmer, each equal to its single-device
+    counterpart; then the dry run as a subprocess."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
+    from aligngraph_tpu_torch.parallel import mesh as pm
+    from aligngraph_tpu_torch.parallel.coverage import (
+        make_sharded_coverage, span_coverage)
+    from aligngraph_tpu_torch.parallel.halo import sliding_window_sum_sharded
+    from aligngraph_tpu_torch.parallel.kmer_shard import (
+        build_kmer_layer_sharded)
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pm.init_group("cuda", 0, 1, str(wl["work"].parent / "nccl_group"))
+    try:
+        mesh = pm.make_mesh("cuda")
+        # NCCL starts its communicator at the group's first collective
+        one = torch.ones(1, device=mesh.device)
+        _, first_s = walled(lambda: dist.all_reduce(one, group=mesh.group))
+        phase("multi", f"{dist.get_backend()} group of {mesh.world_size} "
+              f"on {mesh.device} ({time.perf_counter() - t0:.2f} s, of "
+              f"which the first collective {first_s:.3f} s); {smi}")
+
+        align = pm.make_sharded_aligner(mesh, ra["aligner"])
+        (res, launches, lanes, by_l), wall = walled(
+            lambda: counted(lambda: align(ra["reads"])))
+        require_launched("multi", launches, by_l, results)
+        want = ra["records"]
+        bad = [f for f in FIELDS if getattr(res.records, f).dtype
+               != getattr(want, f).dtype
+               or not np.array_equal(getattr(res.records, f),
+                                     getattr(want, f))]
+        if bad or not sum(res.per_rank) == res.total == want.n:
+            raise AssertionError(f"sharded aligner != align: fields {bad}, "
+                                 f"records {res.per_rank} / {res.total} vs "
+                                 f"{want.n}")
+        phase("multi", f"make_sharded_aligner: {ra['reads'].n_pairs} pairs, "
+              f"{res.total} records == align in every field; wall "
+              f"{wall:.4f} s (align's timed walls "
+              f"{[round(w, 4) for w in ra['walls']]} s); launches "
+              f"{launches}; {smi}")
+
+        every = km["every"]
+        G = int(km["g0"].part_len)
+        starts = torch.from_numpy(every.target_start.reshape(-1)).cuda()
+        ends = torch.from_numpy(every.target_end.reshape(-1)).cuda()
+        cov_fn = make_sharded_coverage(mesh, G)
+        cov_sh, sh_s = walled(lambda: cov_fn(starts, ends))
+        cov, plain_s = walled(lambda: span_coverage(starts, ends, G))
+        if not torch.equal(cov_sh, cov):
+            raise AssertionError("sharded coverage != span_coverage")
+        phase("multi", f"make_sharded_coverage: {starts.numel()} spans over "
+              f"G {G} == span_coverage; wall {sh_s * 1e3:.3f} ms vs "
+              f"{plain_s * 1e3:.3f} ms plain; {smi}")
+
+        win_fn = sliding_window_sum_sharded(mesh, WINDOW)
+        win_sh, sh_s = walled(lambda: win_fn(cov))
+        win, plain_s = walled(lambda: window_sum_plain(cov, WINDOW))
+        if not torch.equal(win_sh, win):
+            raise AssertionError("sharded window sum != plain")
+        phase("multi", f"sliding_window_sum_sharded (window {WINDOW}) on "
+              f"{cov.numel()} positions == plain; wall {sh_s * 1e3:.3f} ms "
+              f"vs {plain_s * 1e3:.3f} ms plain; {smi}")
+
+        cfg, reads = wl["cfg"], wl["reads"]
+        g_sh = copy.deepcopy(km["g0"])
+        st, wall = walled(lambda: build_kmer_layer_sharded(
+            g_sh, every, reads, cfg.k_mer, cfg.insert_variation, mesh,
+            chunk_records=KMER_CHUNK))
+        bad = [f for f in KM_FIELDS
+               if getattr(g_sh, f).dtype != getattr(km["g_split"], f).dtype
+               or not np.array_equal(getattr(g_sh, f),
+                                     getattr(km["g_split"], f))]
+        if bad or dataclasses.asdict(st) != HOST_KMER_STATS:
+            raise AssertionError(f"sharded k-mer build != device build: "
+                                 f"fields {bad}, stats {st}")
+        # the single-device build again, after the sharded one: the two
+        # walls in turns (host phase 0 varies within a call)
+        g_dev = copy.deepcopy(km["g0"])
+        _, dev_s = walled(lambda: kj.build_kmer_layer_device(
+            g_dev, every, reads, cfg.k_mer, cfg.insert_variation,
+            chunk_records=KMER_CHUNK, device="cuda"))
+        del g_dev
+        phase("multi", f"build_kmer_layer_sharded: {every.n} records, "
+              f"chunks of {KMER_CHUNK}: all {len(KM_FIELDS)} arrays == the "
+              f"device build, stats == HOST_KMER_STATS; wall {wall:.3f} s; "
+              f"build_kmer_layer_device {km['wall']:.3f} s before it, "
+              f"{dev_s:.3f} s after it; {smi}")
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "aligngraph_tpu_torch.dryrun", "--nproc",
+         "1"], cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    phase("multi", f"{proc.stdout.strip()} "
+          f"({time.perf_counter() - t0:.1f} s, process start included); "
+          f"{smi}")
 
 
 def pipeline_full(results: dict, wl: dict) -> None:
@@ -876,11 +1028,13 @@ def main() -> int:
     results = kernel_results()
     check_kernels(results, card)
 
-    read_aligner_path(results)
+    ra = read_aligner_path(results)
     with tempfile.TemporaryDirectory() as tmp:
         pipeline_small(results, Path(tmp) / "small")
         wl = full_workload(Path(tmp) / "full")
-        kmer_build(wl)
+        km = kmer_build(wl)
+        multi_device(results, ra, km, wl, smi)
+        del km
         pipeline_full(results, wl)
 
     print(json.dumps({"kernels": list(results.values())}))
