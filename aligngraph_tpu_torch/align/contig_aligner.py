@@ -14,18 +14,25 @@ the JAX ContigAligner.align field by field.  The design is the same:
   4. host stitch: per-tile position maps merged into the placement's
      chunk-length pos_map; gapless holes at tile seams re-filled
   5. the loadContiAli filters (AlignGraph.cpp:841)
-The host parts (_cluster_and_chain, _tile_diags, _enforce_monotone,
-_fill_gapless_holes, _finalize) are copies of the JAX module's: that module
-imports jax, which the machine with the card does not have.
+The host parts (_tile_diags, _fill_gapless_holes, _finalize) are copies
+of the JAX module's: that module imports jax, which the machine with the
+card does not have.  _cluster_and_chain, _seed_hits and _enforce_monotone
+return what the JAX module's return, faster: at tens of Mb, random 13-mer
+hits make tens of thousands of clusters in one long contig (the JAX
+module's loops are quadratic in them) and junk placements whose blocks
+the chain DP walks (now in C++, native/chain.cpp); those loops took most
+of Eval's time (PERF.md).
 """
 
 from __future__ import annotations
 
+import bisect
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from aligngraph_tpu_torch import native
 from aligngraph_tpu_torch.align.types import ContigAlignments
 from aligngraph_tpu_torch.config import Config, INIT_CONTIG_THRESHOLD
 from aligngraph_tpu_torch.io.formalize import Contigs
@@ -60,6 +67,11 @@ def _cluster_and_chain(qpos: np.ndarray, tpos: np.ndarray, chunk_len: int,
     """Seed hits -> chained placements.
 
     Returns list of dicts {clusters: [(diag, qmin, qmax, votes)], votes}.
+
+    The hits sorted by (diag, qpos) hold each cluster as one run, so a
+    cluster is a slice: its diag is the run's first, qmin/qmax reduce over
+    the run.  The work must stay linear in the hits: on a 64 Mb genome
+    random 13-mer hits come at about one a seed, each a cluster.
     """
     if len(qpos) == 0:
         return []
@@ -69,38 +81,20 @@ def _cluster_and_chain(qpos: np.ndarray, tpos: np.ndarray, chunk_len: int,
     new = np.empty(len(d), bool)
     new[0] = True
     new[1:] = (d[1:] - d[:-1]) > CLUSTER_GAP
-    cid = np.cumsum(new) - 1
-    ncl = cid[-1] + 1
+    starts = np.flatnonzero(new)
+    votes = np.diff(np.append(starts, len(d)))
+    qmin = np.minimum.reduceat(q, starts)
+    qmax = np.maximum.reduceat(q, starts)
     cl = []
-    for c in range(ncl):
-        m = cid == c
-        cl.append(dict(diag=int(d[m].min()), qmin=int(q[m].min()),
-                       qmax=int(q[m].max()), votes=int(m.sum()),
-                       q=q[m], d=d[m]))
-    cl = [c for c in cl if c["votes"] >= min_votes]
+    for i in np.flatnonzero(votes >= min_votes):
+        s, e = starts[i], starts[i] + votes[i]
+        cl.append(dict(diag=int(d[s]), qmin=int(qmin[i]), qmax=int(qmax[i]),
+                       votes=int(votes[i]), q=q[s:e], d=d[s:e]))
     if not cl:
         return []
     # chain query-collinear clusters (large indel = diagonal jump)
     cl.sort(key=lambda c: (c["qmin"], c["diag"]))
-    chains: List[List[dict]] = []
-    used = [False] * len(cl)
-    for i, c in enumerate(cl):
-        if used[i]:
-            continue
-        chain = [c]
-        used[i] = True
-        for j in range(i + 1, len(cl)):
-            if used[j]:
-                continue
-            n = cl[j]
-            prev = chain[-1]
-            qgap = n["qmin"] - prev["qmax"]
-            tgap = (n["diag"] + n["qmin"]) - (prev["diag"] + prev["qmax"])
-            if (qgap > -MAX_Q_OVERLAP and -MAX_Q_OVERLAP < tgap < max_join_gap
-                    and abs(n["diag"] - prev["diag"]) < max_join_gap):
-                chain.append(n)
-                used[j] = True
-        chains.append(chain)
+    chains = [[cl[i] for i in ch] for ch in _chain(cl, max_join_gap)]
     out = []
     for chain in chains:
         out.append(dict(clusters=chain,
@@ -108,6 +102,56 @@ def _cluster_and_chain(qpos: np.ndarray, tpos: np.ndarray, chunk_len: int,
     out.sort(key=lambda p: (-p["votes"],
                             p["clusters"][0]["diag"]))
     return out[:MAX_PLACEMENTS]
+
+
+def _chain(cl: List[dict], max_join_gap: int) -> List[List[int]]:
+    """Greedy chains over clusters sorted by (qmin, diag), as indices:
+    each unused cluster i starts a chain, which takes, again and again,
+    the first unused cluster after the one it took last that joins its
+    last (query gap > -MAX_Q_OVERLAP, -MAX_Q_OVERLAP < target gap <
+    max_join_gap, diagonals closer than max_join_gap).
+
+    A joining cluster's diagonal lies within max_join_gap of the last's,
+    so only the three diagonal buckets of width max_join_gap around it
+    are searched, each in cluster order: the work stays near linear for
+    random clusters spread over the genome."""
+    qmin = [c["qmin"] for c in cl]
+    qmax = [c["qmax"] for c in cl]
+    diag = [c["diag"] for c in cl]
+    buckets: dict = {}
+    for j, d in enumerate(diag):
+        buckets.setdefault(d // max_join_gap, []).append(j)
+    used = [False] * len(cl)
+    chains = []
+    for i in range(len(cl)):
+        if used[i]:
+            continue
+        used[i] = True
+        chain = [i]
+        p = i
+        while True:
+            nxt = None
+            b = diag[p] // max_join_gap
+            for lst in (buckets.get(b - 1), buckets.get(b),
+                        buckets.get(b + 1)):
+                if not lst:
+                    continue
+                for j in lst[bisect.bisect_right(lst, p):]:
+                    if nxt is not None and j > nxt:
+                        break
+                    tgap = (diag[j] + qmin[j]) - (diag[p] + qmax[p])
+                    if (not used[j] and qmin[j] - qmax[p] > -MAX_Q_OVERLAP
+                            and -MAX_Q_OVERLAP < tgap < max_join_gap
+                            and abs(diag[j] - diag[p]) < max_join_gap):
+                        nxt = j
+                        break
+            if nxt is None:
+                break
+            used[nxt] = True
+            chain.append(nxt)
+            p = nxt
+        chains.append(chain)
+    return chains
 
 
 def _tile_diags(chain: List[dict], n_tiles: int) -> np.ndarray:
@@ -159,11 +203,31 @@ def _enforce_monotone(pos_map: np.ndarray) -> None:
         return                      # already strictly increasing
     m = len(starts)
     w = (ends - starts).astype(np.int64)
-    # weighted chain DP with target-overlap trimming: a successor block
-    # may overlap its predecessor's target span — the overlapped prefix
-    # is trimmed off (local SW chance-extends block ends past true
-    # breakpoints, so exact non-overlap chaining would disqualify the
-    # real continuation)
+    # junk placements (random seed clusters) carry thousands of blocks:
+    # the C++ loop when g++ built it, else the numpy one
+    dp = native.monotone_chain_native(t0, t1, w)
+    best, parent, trim = dp if dp is not None else _chain_dp(t0, t1, w)
+    keep = np.zeros(m, bool)
+    i = int(np.argmax(best))                # first max on ties
+    while i >= 0:
+        keep[i] = True
+        i = int(parent[i])
+    for k in np.nonzero(~keep)[0]:
+        pos_map[idx[starts[k]]:idx[ends[k] - 1] + 1] = -1
+    for k in np.nonzero(keep & (trim > 0))[0]:
+        cut = idx[starts[k] + trim[k] - 1] + 1
+        pos_map[idx[starts[k]]:cut] = -1
+
+
+def _chain_dp(t0: np.ndarray, t1: np.ndarray, w: np.ndarray):
+    """Weighted chain DP over M-blocks with target-overlap trimming ->
+    (best, parent, trim): a successor block may overlap its predecessor's
+    target span, and the overlapped prefix is trimmed off (local SW
+    chance-extends block ends past true breakpoints, so exact non-overlap
+    chaining would disqualify the real continuation).  The predecessor is
+    the first j of largest gain (deterministic).  native/chain.cpp runs
+    the same loop."""
+    m = len(w)
     best = w.copy()
     parent = np.full(m, -1, np.int64)
     trim = np.zeros(m, np.int64)
@@ -176,16 +240,7 @@ def _enforce_monotone(pos_map: np.ndarray) -> None:
             best[i] = gain[j]
             parent[i] = j
             trim[i] = ov[j]
-    keep = np.zeros(m, bool)
-    i = int(np.argmax(best))                # first max on ties
-    while i >= 0:
-        keep[i] = True
-        i = int(parent[i])
-    for k in np.nonzero(~keep)[0]:
-        pos_map[idx[starts[k]]:idx[ends[k] - 1] + 1] = -1
-    for k in np.nonzero(keep & (trim > 0))[0]:
-        cut = idx[starts[k] + trim[k] - 1] + 1
-        pos_map[idx[starts[k]]:cut] = -1
+    return best, parent, trim
 
 
 def _fill_gapless_holes(pos_map: np.ndarray) -> None:
@@ -263,8 +318,10 @@ class ContigAligner:
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
         qpos = np.repeat(qp, cnt)
         qfl = np.repeat(qflip, cnt)
-        pf = np.concatenate(
-            [self._sorted_posflip[l:l + c] for l, c in zip(lo, cnt)])
+        # each seed's run of the index, in seed order
+        first = np.cumsum(cnt) - cnt
+        pf = self._sorted_posflip[np.repeat(lo - first, cnt)
+                                  + np.arange(len(qpos))]
         fwd = (pf < 0) == qfl            # genome_flip XOR query_flip == 0
         tpos = (pf & 0x7FFFFFFF).astype(np.int64)
         return qpos[fwd].astype(np.int64), tpos[fwd]

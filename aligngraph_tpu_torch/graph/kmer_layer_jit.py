@@ -542,6 +542,16 @@ def _state_from_graph(g: GraphTensors, device, lo: int = 0,
     return out
 
 
+def state_bytes(n_pos: int) -> int:
+    """Device bytes that _state_from_graph and _cmpack allocate for a
+    graph of n_pos positions (part_len + overflow_cap): every
+    STATE_FIELDS array as int32 with its sentinel row, and the [n_pos, 5]
+    int32 anchor pack.  133 + 5 int32 a position, 552 bytes."""
+    g = GraphTensors.create(np.zeros(1, np.int8), overflow_cap=1)
+    row = sum(int(np.prod(getattr(g, f).shape[1:])) for f in STATE_FIELDS)
+    return 4 * (row * (n_pos + 1) + (1 + 2 * CPO) * n_pos)
+
+
 def _state_to_graph(state, g: GraphTensors) -> None:
     """Write the first n_pos rows of the state (those of g's positions:
     no sentinel or padding row) back into g's arrays at their own

@@ -68,6 +68,26 @@ def get_fasta_lib():
     return _load("fasta", "libagfasta.so", "fastaio.cpp", setup)
 
 
+def get_chain_lib():
+    return _load("chain", "libagchain.so", "chain.cpp", lambda lib: None)
+
+
+def monotone_chain_native(t0: np.ndarray, t1: np.ndarray, w: np.ndarray):
+    """C++ chain DP of contig_aligner._enforce_monotone over int64 block
+    arrays -> (best, parent, trim), or None if the library is
+    unavailable."""
+    lib = get_chain_lib()
+    if lib is None:
+        return None
+    m = len(w)
+    t0, t1, w = (np.ascontiguousarray(a, np.int64) for a in (t0, t1, w))
+    out = [np.empty(m, np.int64) for _ in range(3)]
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    lib.ag_monotone_chain(ctypes.c_int64(m),
+                          *(a.ctypes.data_as(p64) for a in (t0, t1, w, *out)))
+    return tuple(out)
+
+
 def read_fasta_native(path):
     """C++ FASTA parse -> (ids, seqs bytes) or None if unavailable."""
     lib = get_fasta_lib()

@@ -25,10 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import resource
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from aligngraph_tpu_torch import native
 from aligngraph_tpu_torch.align.types import ContigAlignments, PairAlignments
@@ -128,6 +130,41 @@ def _align_contigs_per_part(genome: Genome, contigs: Contigs,
     return _concat_contig_ali(parts)
 
 
+class _StageMemory:
+    """stats["memory"][stage] = {"host_max_rss_bytes": the process's peak
+    RSS when the stage ended, "device_peak_bytes": on a CUDA device, the
+    peak allocated bytes during the stage (the peak is reset when it
+    begins)}; and stats["kmer_state_bytes"], per part built on a CUDA
+    device, the bytes allocated between the k-mer build's start and the
+    end of its first "h2d" stage: the state and the anchor pack."""
+
+    def __init__(self, device, stats: Dict):
+        self.cuda = torch.device(device).type == "cuda"
+        self.out = stats.setdefault("memory", {})
+        self.state = stats.setdefault("kmer_state_bytes", [])
+        self.base = None
+
+    def begin(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.base = torch.cuda.memory_allocated()
+
+    def end(self, stage: str) -> None:
+        rec = {"host_max_rss_bytes": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024}
+        if self.cuda:
+            torch.cuda.synchronize()
+            rec["device_peak_bytes"] = torch.cuda.max_memory_allocated()
+        self.out[stage] = rec
+
+    def kmer_mark(self, name: str) -> None:
+        """build_kmer_layer_device's `mark`, after begin()."""
+        if self.cuda and name == "h2d" and self.base is not None:
+            self.state.append(torch.cuda.memory_allocated() - self.base)
+            self.base = None
+
+
 def check_ratio(rali: PairAlignments, n_pairs: int) -> float:
     """C25 (`checkRatio`, AlignGraph.cpp:3751-3819): fraction of pairs
     passing the C13 filters; warns below 25%."""
@@ -149,9 +186,13 @@ def run_pipeline(cfg: Config,
                  checkpoint=None, *, device) -> PipelineResult:
     """The whole reassembly; the aligners, and the k-mer layer build when
     cfg.graph_build is "device", run on `device` ("cuda" launches the
-    hand-written kernels, "cpu" runs their plain versions)."""
+    hand-written kernels, "cpu" runs their plain versions).
+
+    Memory per stage goes to stats["memory"] (_StageMemory): on a CUDA
+    device each stage resets torch.cuda's peak memory statistics."""
     t0 = time.time()
     stats: Dict = {}
+    mem = _StageMemory(device, stats)
 
     # --resume: restore config from the work dir's command round-trip and
     # pick up from the last checkpoint (reference :4748-4760)
@@ -188,6 +229,7 @@ def run_pipeline(cfg: Config,
     stats["n_contigs"] = contigs.n_real
     stats["n_parts"] = genome.n_parts
 
+    mem.begin()
     ta = time.time()
     gseq = np.asarray(genome.seq, np.int8)
     restored = None
@@ -235,9 +277,13 @@ def run_pipeline(cfg: Config,
             # its own copy on the device.
             import concurrent.futures as _cf
 
+            t = time.time()
             index = build_index(gseq, cfg.seed_len)
             r_aligner = ReadAligner.from_index(gseq, index, cfg,
                                                device=device)
+            # seconds of the index build and of each thread
+            threads = stats["alignment_threads"] = {
+                "index": time.time() - t}
             if genome.n_parts == 1:
                 c_aligner = ContigAligner(gseq, cfg, index=index,
                                           device=device)
@@ -245,15 +291,24 @@ def run_pipeline(cfg: Config,
             else:
                 align_c = lambda: _align_contigs_per_part(  # noqa: E731
                     genome, contigs, cfg, device)
+
+            def timed(name, fn):
+                t = time.time()
+                out = fn()
+                threads[name] = time.time() - t
+                return out
+
             with _cf.ThreadPoolExecutor(max_workers=2) as ex:
-                fut_r = ex.submit(r_aligner.align, reads)
-                fut_c = ex.submit(align_c)
+                fut_r = ex.submit(timed, "reads",
+                                  lambda: r_aligner.align(reads))
+                fut_c = ex.submit(timed, "contigs", align_c)
                 rali = fut_r.result()
                 cali = fut_c.result()
         if checkpoint is not None:
             checkpoint.save_alignments(rali, cali)
             checkpoint.set(0)
     align_seconds = time.time() - ta
+    mem.end("alignment")
     stats["read_alignments"] = rali.n
     stats["contig_placements"] = cali.n
 
@@ -286,6 +341,7 @@ def run_pipeline(cfg: Config,
         stage_banner(3, f"graph build + extension: part {p + 1}/"
                         f"{genome.n_parts}")
         lo, hi = int(part_bounds[p]), int(part_bounds[p + 1])
+        mem.begin()
         g = GraphTensors.create(genome.part_seq(p))
 
         tst = time.time()
@@ -294,9 +350,11 @@ def run_pipeline(cfg: Config,
         outp = build_contig_layer(g, contigs, part_cali, part_offset=lo)
         per_part_initials.append(initial_contigs(contigs, outp))
         stage_s["contig_layer"] += time.time() - tst
+        mem.end(f"contig_layer.{p}")
         log.info("  contig layer: %.1fs (%d placements)",
                  time.time() - tst, part_cali.n)
 
+        mem.begin()
         tst = time.time()
         ts = rali.target_start
         rmask = ((ts[:, 0] >= lo) & (ts[:, 0] < hi)
@@ -305,20 +363,24 @@ def run_pipeline(cfg: Config,
         if cfg.graph_build == "device":
             build_kmer_layer_device(g, part_rali, reads, cfg.k_mer,
                                     cfg.insert_variation, part_offset=lo,
-                                    stats=kstats, device=device)
+                                    stats=kstats, device=device,
+                                    mark=mem.kmer_mark)
         else:
             build_kmer_layer(g, part_rali, reads, cfg.k_mer,
                              cfg.insert_variation, part_offset=lo,
                              stats=kstats)
         stage_s["kmer_build"] += time.time() - tst
+        mem.end(f"kmer_build.{p}")
         log.info("  kmer build: %.1fs (%d records)",
                  time.time() - tst, part_rali.n)
 
+        mem.begin()
         tst = time.time()
         pre_snap: List = []
         scaffolds, _pre = extend_and_scaffold(g, cfg.coverage, cfg.k_mer,
                                               pre_snapshot=pre_snap)
         stage_s["traverse"] += time.time() - tst
+        mem.end(f"traverse.{p}")
         log.info("  traverse+scaffold: %.1fs", time.time() - tst)
         per_part_scaffolds.append(scaffolds)
         _write_stage_files(cfg.work_dir, p, per_part_initials[-1],
@@ -331,10 +393,12 @@ def run_pipeline(cfg: Config,
     stats["n_scaffolds"] = sum(len(s) for s in per_part_scaffolds)
 
     stage_banner(4, "refinement")
+    mem.begin()
     tst = time.time()
     res = refine(cfg, genome, contigs, per_part_initials,
                  per_part_scaffolds, device=device)
     stage_s["refinement"] = time.time() - tst
+    mem.end("refinement")
     stage_s["alignment"] = align_seconds
 
     out = PipelineResult(

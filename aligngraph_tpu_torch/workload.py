@@ -11,6 +11,10 @@ target genome, a reference = target + 1% SNPs + small indels, PE 100 bp
 reads from the target at a given depth, and ~3 kb draft contigs of the
 target separated by insert-bridgeable gaps.
 
+make_bigscale_workload: scripts/bigscale_run.py's workload (the same
+generators and order, seed 11), for the big-genome run
+(aligngraph_tpu_torch/bigscale.py).
+
 The same arguments give the same arrays as the benchmark scripts.
 """
 
@@ -78,23 +82,40 @@ def mutate_fast(rng, target, snp=0.01, indel=0.0005, max_indel=3):
     return np.concatenate(pieces)
 
 
+# pairs simulate_pe_reads makes at a time
+READ_BLOCK_PAIRS = 1 << 18
+
+
 def simulate_pe_reads(rng, target, n_pairs, read_len=100, insert=500,
                       insert_sd=30, err=0.003):
     """Vectorized FR PE read simulation with gaussian insert sizes ->
-    (data int8 [2*n_pairs, read_len] mate-interleaved, lens int32)."""
+    (data int8 [2*n_pairs, read_len] mate-interleaved, lens int32).
+
+    The reads, then the sequencing-error mask, are made READ_BLOCK_PAIRS
+    pairs at a time: consecutive rng.random calls draw the doubles that
+    one call over the whole read matrix would, so the output is
+    bench_pipeline.py's, without its [2*n_pairs, read_len] float64 mask
+    and int64 gather indices (10 GB each at 64 Mb and 20x)."""
     n = len(target)
     ins = np.clip(rng.normal(insert, insert_sd, n_pairs).astype(np.int64),
                   2 * read_len, n - 1)
     starts = (rng.random(n_pairs) * (n - ins - 1)).astype(np.int64)
-    r1 = target[starts[:, None] + np.arange(read_len)]
-    ends = starts + ins
-    r2 = COMP[target[(ends - read_len)[:, None]
-                     + np.arange(read_len)]][:, ::-1]
     data = np.empty((2 * n_pairs, read_len), np.int8)
-    data[0::2] = r1
-    data[1::2] = r2
-    e = rng.random(data.shape) < err
-    data[e] = (data[e] + rng.integers(1, 4, int(e.sum()))) % 4
+    j = np.arange(read_len)
+    for s in range(0, n_pairs, READ_BLOCK_PAIRS):
+        e = min(s + READ_BLOCK_PAIRS, n_pairs)
+        st = starts[s:e, None]
+        data[2 * s:2 * e:2] = target[st + j]
+        data[2 * s + 1:2 * e:2] = COMP[target[st + ins[s:e, None]
+                                              - read_len + j]][:, ::-1]
+    flat = data.reshape(-1)
+    hits = [np.zeros(0, np.int64)]
+    rows = 2 * READ_BLOCK_PAIRS
+    for s in range(0, 2 * n_pairs, rows):
+        blk = rng.random((min(rows, 2 * n_pairs - s), read_len)) < err
+        hits.append(np.flatnonzero(blk) + s * read_len)
+    e = np.concatenate(hits)
+    flat[e] = (flat[e] + rng.integers(1, 4, len(e))) % 4
     return data, np.full(n_pairs, read_len, np.int32)
 
 
@@ -120,6 +141,13 @@ def make_pipeline_workload(genome_len=4_600_000, depth=25.0, read_len=100,
     ref = mutate_fast(rng, target)
     data, lens = simulate_pe_reads(rng, target, n_pairs, read_len=read_len)
     return target, ref, data, lens, cut_contigs(rng, target)
+
+
+def make_bigscale_workload(genome_len, depth, seed=11, read_len=100):
+    """scripts/bigscale_run.py's workload -> (target, ref, data, lens,
+    contig_seqs): the same generators as make_pipeline_workload, drawn in
+    the script's order from seed 11."""
+    return make_pipeline_workload(genome_len, depth, read_len, seed)
 
 
 def tile_lanes(rng, B, L=512, pad=16, G=1_000_000, max_indel=6):

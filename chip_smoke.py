@@ -72,9 +72,24 @@ Phases, one line each, any failure raises (non-zero exit):
      workload (HOST_KMER_STATS) and Eval the JAX package's BENCH_PIPE.json
      (identity to 4 places); fails too if the native C++ traversal did
      not load.
-Then a JSON line of per-kernel results (launches: the main path's,
-run_pipeline then Eval), nvidia-smi's line, and the last line
-{"ok": true, "device": {...}}.
+  big: the big-genome run (aligngraph_tpu_torch.bigscale.run, the code
+     path of python3 -m aligngraph_tpu_torch.bigscale) on "cuda" at 32 Mb,
+     20x (3,200,000 pairs), --part 2, seed 11, graph_build="device",
+     ratio_check=True, then Eval: walls per stage, peak device memory per
+     stage, the k-mer state's bytes (reckoned and allocated), host RSS;
+     every kernel launched; every dropped_* 0, extended > 0, Eval MPMB
+     0.0, true contigs >= 95% of extended, and the extended contigs, Eval
+     and the k-mer stats equal to the recorded BIG_EVAL and
+     BIG_KMER_STATS (identity to 4 places).  Then the
+     read aligner on "cuda" against "cpu" on 2,048 pairs at the run's
+     32 Mb index (every field equal), and part 2's device k-mer build (16
+     Mb positions, part_offset 16 Mb; the graph after its contig layer and
+     the records as run_pipeline hands them to the build) against the
+     host oracle on the part's first 4 chunks of 16,384 accepted records:
+     all 13 arrays and the stats equal.
+Then a JSON line of per-kernel results (launches: the main paths',
+run_pipeline then Eval at 4.6 Mb, then phase big), nvidia-smi's line, and
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -994,6 +1009,162 @@ def pipeline_full(results: dict, wl: dict) -> None:
         raise AssertionError(f"Eval != BENCH_PIPE.json: {diff}")
 
 
+# phase big: aligngraph_tpu_torch.bigscale at 32 Mb (two 16 Mb parts), 20x
+BIG_MB, BIG_DEPTH, BIG_PART = 32.0, 20.0, 2
+BIG_CHECK_PAIRS = 2048
+# the big run's product, recorded on the H100 (PERF.md), so that any change
+# shows.  Eval's identity here is 0.9988, under the 0.999 that the 64.4 Mb
+# run (0.99912) and the 4.6 Mb workload (0.9993) reach: it moves with the
+# region (0.9981 to 0.9994 over 1 Mb windows of these contigs), and on the
+# 1-2 Mb window's share of this workload the JAX package writes the port's
+# contigs byte for byte, at 0.9983 (PERF.md; scripts/eval_windows.py,
+# scripts/bigscale_window.py)
+BIG_EVAL = {"extended": 338, "extended_bases": 31_108_244,
+            "n_contigs": 338, "n_true_contigs": 338, "n50": 148_046,
+            "covered_length": 31_117_580, "mpmb": 0.0,
+            "average_identity": 0.9988}
+BIG_KMER_STATS = {"tuples": 303_645_809, "rows": 607_363_419,
+                  "groups": 306_737_990, "dropped_rank": 0,
+                  "dropped_slots": 0, "dropped_edges": 0}
+
+
+def big_genome(results: dict, work: Path, smi: str) -> None:
+    """Phase big: bigscale.run on "cuda" (the launches of the big-genome
+    path), its invariants, the read aligner on cuda against cpu on
+    BIG_CHECK_PAIRS pairs at the run's 32 Mb index, and part 2's device
+    k-mer build against the host oracle on the part's first KMER_CHUNKS
+    chunks of accepted records (graph and records as run_pipeline gave
+    them to its build: the driver's build_index and
+    build_kmer_layer_device are wrapped for the run to keep them)."""
+    import copy
+    import dataclasses
+
+    from aligngraph_tpu_torch import ReadAligner, Reads, build_kmer_layer
+    from aligngraph_tpu_torch import bigscale
+    from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
+    from aligngraph_tpu_torch.pipeline import driver
+
+    n_rec = KMER_CHUNKS * KMER_CHUNK
+    kept = {"copy_s": 0.0}
+    build_index, build_kmer = driver.build_index, driver.build_kmer_layer_device
+
+    def keep_index(*args, **kw):
+        kept["index"] = build_index(*args, **kw)
+        return kept["index"]
+
+    def keep_part2(g, recs, *args, part_offset, **kw):
+        if part_offset:                  # part 2, before its build
+            t = time.perf_counter()
+            kept.update(g0=copy.deepcopy(g), lo=part_offset,
+                        recs=dataclasses.replace(recs, **{
+                            f.name: getattr(recs, f.name)[:n_rec]
+                            for f in dataclasses.fields(recs)}))
+            kept["copy_s"] += time.perf_counter() - t
+        return build_kmer(g, recs, *args, part_offset=part_offset, **kw)
+
+    driver.build_index, driver.build_kmer_layer_device = keep_index, keep_part2
+    try:
+        t0 = time.perf_counter()
+        (line1, line2, ctx), launches, lanes, by_l = counted(
+            lambda: bigscale.run(BIG_MB, BIG_DEPTH, BIG_PART, device="cuda",
+                                 work_dir=str(work)))
+        wall = time.perf_counter() - t0
+    finally:
+        driver.build_index, driver.build_kmer_layer_device = \
+            build_index, build_kmer
+    require_launched("big", launches, by_l, results)
+    for n, r in results.items():
+        r["launches"] += launches[n]
+    mem = {k: round(v.get("device_peak_bytes", 0) / 2**30, 2)
+           for k, v in line1["stage_memory"].items()}
+    phase("big", f"{BIG_MB:g} Mb, {BIG_DEPTH:g}x, --part {BIG_PART}: "
+          f"{line1['n_pairs']} pairs; setup {line1['setup_seconds']} s, "
+          f"run_pipeline {line1['value']} s, stages "
+          f"{line1['stage_seconds']} (kmer_build with {kept['copy_s']:.1f} s "
+          f"of this phase's copy of part 2), eval {line2['eval_s']} s, "
+          f"phase wall {wall:.1f} s; {smi}")
+    phase("big", f"peak device GiB by stage {mem}, Eval "
+          f"{line2['device_peak_bytes'] / 2**30:.2f}; k-mer state bytes "
+          f"reckoned {line1['kmer_state_bytes']}, allocated "
+          f"{line1['kmer_state_bytes_measured']}; max RSS of this process "
+          f"(every phase and the copy of part 2) {line1['max_rss_gb']} GB of "
+          f"{line1['host_ram_bytes'] / 1e9:.1f}; launches {launches}; lanes "
+          f"{lanes}")
+    phase("big", f"extended {line1['extended']} ({line1['extended_bases']} "
+          f"bases), remaining {line1['remaining']}, aligned pair fraction "
+          f"{line1['aligned_pair_fraction']}; kmer stats "
+          f"{line1['kmer_stats']}; Eval {line2}")
+    ks = line1["kmer_stats"]
+    bad = {k: v for k, v in ks.items() if k.startswith("dropped_") and v}
+    if bad or not line1["extended"]:
+        raise AssertionError(f"big: dropped {bad}, extended "
+                             f"{line1['extended']}")
+    if not (line2["mpmb"] == 0.0
+            and line2["n_true_contigs"] >= 0.95 * line1["extended"]):
+        raise AssertionError(f"big: Eval {line2} for {line1['extended']} "
+                             f"extended contigs")
+    got = dict(extended=line1["extended"],
+               extended_bases=line1["extended_bases"],
+               **{k: line2[k] for k in BIG_EVAL if k in line2},
+               **line1["kmer_stats"])
+    got["average_identity"] = round(got["average_identity"], 4)
+    if got != {**BIG_EVAL, **BIG_KMER_STATS}:
+        raise AssertionError(f"big: {got} != the recorded "
+                             f"{BIG_EVAL} {BIG_KMER_STATS}")
+
+    # the read aligner on cuda against cpu at the run's 32 Mb index
+    cfg, reads, genome = ctx["cfg"], ctx["reads"], ctx["genome"]
+    del ctx
+    t0 = time.perf_counter()
+    gseq = np.asarray(genome.seq, np.int8)
+    index = kept.pop("index")
+    n = BIG_CHECK_PAIRS
+    sub = Reads(n, reads.max_len, reads.data[:2 * n], reads.lengths[:n])
+    got = ReadAligner.from_index(gseq, index, cfg, device="cuda").align(sub)
+    cpu = ReadAligner.from_index(gseq, index, cfg, device="cpu").align(sub)
+    for f in FIELDS:
+        a, b = getattr(got, f), getattr(cpu, f)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"big: cuda != cpu on field {f}")
+    del index
+    phase("big", f"read aligner cuda == cpu on {n} pairs, {got.n} records, "
+          f"every field, the run's index of {len(gseq)} bases "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # part 2's k-mer build against the host oracle
+    g0, recs, lo = kept["g0"], kept["recs"], kept["lo"]
+    k, iv = cfg.k_mer, cfg.insert_variation
+    g_host = copy.deepcopy(g0)
+    t0 = time.perf_counter()
+    st_host = build_kmer_layer(g_host, recs, reads, k, iv, part_offset=lo,
+                               chunk_records=KMER_CHUNK)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st_dev = kj.build_kmer_layer_device(g0, recs, reads, k, iv,
+                                        part_offset=lo,
+                                        chunk_records=KMER_CHUNK,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    state = kj.state_bytes(g0.km_cnt.shape[0])
+    bad = [f for f in KM_FIELDS
+           if getattr(g0, f).dtype != getattr(g_host, f).dtype
+           or not np.array_equal(getattr(g0, f), getattr(g_host, f))]
+    if bad or dataclasses.asdict(st_dev) != dataclasses.asdict(st_host) \
+            or recs.n != n_rec:
+        raise AssertionError(f"big: part 2's device k-mer build != host "
+                             f"oracle: fields {bad}, stats {st_dev} vs "
+                             f"{st_host}, {recs.n} records")
+    phase("big", f"part 2 (offset {lo}, {g0.km_cnt.shape[0]} positions): "
+          f"first {recs.n} accepted records, host oracle {host_s:.3f} s, "
+          f"device {dev_s:.3f} s; all {len(KM_FIELDS)} fields and the stats "
+          f"equal: {dataclasses.asdict(st_dev)}; peak device memory "
+          f"{peak / 2**30:.2f} GiB (state {state / 2**30:.2f} GiB)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs one GPU")
@@ -1013,11 +1184,13 @@ def main() -> int:
     phase("build", f"nvcc built and loaded {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    if native.get_lib() is None or native.get_fasta_lib() is None:
-        raise AssertionError("g++ did not build the C++ traversal and FASTA "
-                             "parser (aligngraph_tpu_torch/native)")
-    phase("build", f"g++ built and loaded the C++ traversal and FASTA parser "
-          f"into aligngraph_tpu_torch/_build/ in "
+    if native.get_lib() is None or native.get_fasta_lib() is None \
+            or native.get_chain_lib() is None:
+        raise AssertionError("g++ did not build the C++ traversal, FASTA "
+                             "parser and chain DP (aligngraph_tpu_torch/"
+                             "native)")
+    phase("build", f"g++ built and loaded the C++ traversal, FASTA parser "
+          f"and chain DP into aligngraph_tpu_torch/_build/ in "
           f"{time.perf_counter() - t0:.1f} s")
     card = card_figures(kind)
     phase("device", f"{card['sms']} SMs, max SM clock "
@@ -1036,6 +1209,9 @@ def main() -> int:
         multi_device(results, ra, km, wl, smi)
         del km
         pipeline_full(results, wl)
+    del ra
+    with tempfile.TemporaryDirectory() as tmp:
+        big_genome(results, Path(tmp) / "big", smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
