@@ -15,11 +15,14 @@ card, then Eval of extended.fa against the target.
 Prints the script's two JSON lines with its keys.  The first adds the
 alignment stage's split (the index build, the read and the contig
 threads: stats["alignment_threads"] of run_pipeline) and the run's
-memory: the peak device bytes of the whole run and of each stage
-(stats["memory"] of run_pipeline), the k-mer state's bytes per part as
-kmer_layer_jit.state_bytes reckons them and as the card allocated them,
-and per position; the peak host RSS, the host's RAM, and the card's name
-and power limit as nvidia-smi gives them.  The second adds Eval's peak
+memory: the peak device bytes of the whole run and of each stage, and
+at each stage's end the host RSS, the live heap and the bytes of the
+large host arrays by name (stats["memory"] of run_pipeline), the host
+seed index's bytes and the seconds of the heap trims between stages,
+the k-mer state's bytes per part as kmer_layer_jit.state_bytes reckons
+them and as the card allocated them, and per position; the peak host
+RSS, the host's RAM, and the card's name and power limit as nvidia-smi
+gives them.  The second adds Eval's peak
 device bytes.
 
 Before it makes the data, and again on the formalized genome's parts, it
@@ -173,6 +176,8 @@ def run(gmb: float, depth: float, part: int, *, device, work_dir):
         setup_seconds=round(setup_s, 1),
         device_peak_bytes=max(peaks) if peaks else None,
         stage_memory=memory,
+        seed_index_bytes=res.stats.get("seed_index_bytes"),
+        heap_trim_seconds=res.stats.get("heap_trim_seconds"),
         kmer_state_bytes=need,
         kmer_state_bytes_measured=measured,
         kmer_state_bytes_per_position=[m / n for m, n in

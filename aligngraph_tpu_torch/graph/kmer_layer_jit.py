@@ -37,13 +37,15 @@ import torch
 
 from aligngraph_tpu_torch.config import EP
 from aligngraph_tpu_torch.graph.kmer_layer import (
-    CPM, CPO, KmerBuildStats, normalize_records,
+    _COMP, CPM, CPO, KmerBuildStats,
 )
 from aligngraph_tpu_torch.graph.model import E_ED, K_KM, NONE32, GraphTensors
 
 I32 = torch.int32
 I64 = torch.int64
 NC = CPO * CPM
+# records a chunk of the build takes (the host oracle's default)
+CHUNK_RECORDS = 16384
 # the row fields phase 3 needs, and its group-key fields (most-major first)
 ROW_FIELDS = ("pos", "arrival", "weight", "contig", "coff", "contig0",
               "coff0", "gpos0", "s_pack", "s_len", "s0")
@@ -526,9 +528,9 @@ def _state_from_graph(g: GraphTensors, device, lo: int = 0,
                       n: Optional[int] = None):
     """Positions [lo, lo + n) (default: all) of g's k-mer and edge arrays
     as int32 tensors of n rows on `device` (uint32 arrays through their
-    int32 view; narrower ones cross at their own width and widen there;
-    rows past g's end are 0), each with one sentinel row appended at
-    index n for masked scatters."""
+    int32 view, copied straight into the state; narrower ones cross at
+    their own width and widen there; rows past g's end are 0), each with
+    one sentinel row appended at index n for masked scatters."""
     out = {}
     for f in STATE_FIELDS:
         a = getattr(g, f)
@@ -537,7 +539,10 @@ def _state_from_graph(g: GraphTensors, device, lo: int = 0,
         rows = a.shape[0] - lo if n is None else n
         a = a[lo:lo + rows]
         t = torch.zeros((rows + 1,) + a.shape[1:], dtype=I32, device=device)
-        t[:a.shape[0]] = torch.from_numpy(a).to(device)
+        src = torch.from_numpy(a)
+        if src.dtype != I32:
+            src = src.to(device)
+        t[:a.shape[0]].copy_(src)
         out[f] = t
     return out
 
@@ -553,71 +558,170 @@ def state_bytes(n_pos: int) -> int:
 
 
 def _state_to_graph(state, g: GraphTensors) -> None:
-    """Write the first n_pos rows of the state (those of g's positions:
-    no sentinel or padding row) back into g's arrays at their own
-    dtypes."""
+    """Write the first rows of the state (those of g's positions: no
+    sentinel or padding row) into g's own arrays, in place: each field is
+    converted to the array's dtype where the state lies (uint32 arrays
+    take the int32 rows through their int32 view) and copied straight
+    into the array's memory, so no field exists twice on the host."""
     for f in STATE_FIELDS:
-        old = getattr(g, f)
-        rows = state[f][:old.shape[0]]
-        if old.dtype == np.uint32:
-            setattr(g, f, rows.cpu().numpy().view(np.uint32))
-        else:
-            dt = torch.from_numpy(old[:0]).dtype
-            setattr(g, f, rows.to(dt).cpu().numpy())
+        a = getattr(g, f)
+        dst = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                               else a)
+        dst.copy_(state[f][:a.shape[0]].to(dst.dtype))
 
 
 def _cmpack(g: GraphTensors, device) -> torch.Tensor:
     """[n_pos, 5] int32 (cm_cnt, contig0, contig1, coff0, coff1), -1 for
-    NONE32, on `device`."""
-    def anchors(a):
-        return np.where(a[:, :CPO] == NONE32, -1,
-                        a[:, :CPO].astype(np.int64)).astype(np.int32)
+    NONE32, on `device`: the uint32 anchors' int32 view, which is -1 for
+    NONE32, built where the tensor lies (no host temporary)."""
+    out = torch.empty((g.cm_cnt.shape[0], 1 + 2 * CPO), dtype=I32,
+                      device=device)
+    out[:, 0] = torch.from_numpy(g.cm_cnt).to(device)
+    for j, a in enumerate((g.cm_contig, g.cm_coff)):
+        out[:, 1 + j * CPO:1 + (j + 1) * CPO] = torch.from_numpy(
+            a.view(np.int32)).to(device)[:, :CPO]
+    return out
 
-    return torch.from_numpy(np.concatenate([
-        g.cm_cnt[:, None].astype(np.int32), anchors(g.cm_contig),
-        anchors(g.cm_coff)], axis=1)).to(device)
+
+# ----------------------------------------------------------------------
+# phase 0, streamed: normalize_records' rows, a chunk at a time
+# ----------------------------------------------------------------------
+
+def _part_local(pm: np.ndarray, part_offset: int, part_len):
+    """normalize_records' part-local positions of int32 genome positions:
+    -1 where unaligned or outside [0, part_len)."""
+    p = np.where(pm >= 0, pm - np.int32(part_offset), np.int32(-1))
+    if part_len is not None:
+        p = np.where((p >= 0) & (p < part_len), p, np.int32(-1))
+    return p
 
 
-def _chunk_inputs(p1, p2, s1, lens, keep, s: int, e: int, device):
-    """Records [s, e) of normalize_records' arrays as the tensors
-    `_chunk_update` takes, on `device`."""
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (p1[s:e].astype(np.int32), p2[s:e].astype(np.int32),
-                      s1[s:e], lens[s:e].astype(np.int32), keep[s:e])]
+def phase0_skip(pairs, rows: np.ndarray, part_offset: int = 0,
+                part_len: Optional[int] = None) -> np.ndarray:
+    """[M] bool: normalize_records' duplicate-placement skip over the
+    records pairs[rows] (reference :1650-1655), from [M] arrays only: a
+    record is dropped when an earlier record of its pair has
+    |int32(b - pb)| < len, b the first base's part-local position
+    (0xFFFFFFFF when unaligned or outside the part)."""
+    M = len(rows)
+    keep = np.ones(M, bool)
+    if not M:
+        return keep
+    b = _part_local(pairs.pos_map[rows, 0, 0], part_offset,
+                    part_len).astype(np.int64)
+    base0 = np.where(b >= 0, b, 0xFFFFFFFF)
+    lens = pairs.source_size[rows, 0].astype(np.int64)
+    pid = pairs.pair_id[rows]
+    order = np.argsort(pid, kind="stable")
+    pid_s = pid[order]
+    newg = np.ones(M, bool)
+    newg[1:] = pid_s[1:] != pid_s[:-1]
+    starts = np.nonzero(newg)[0]
+    runlen = np.diff(np.concatenate([starts, [M]]))
+    rank = np.arange(M) - np.repeat(starts, runlen)
+    Rk = int(rank.max()) + 1
+    gid = np.cumsum(newg) - 1
+    b_d = np.zeros((len(starts), Rk), np.int64)
+    l_d = np.zeros((len(starts), Rk), np.int64)
+    b_d[gid, rank] = base0[order]
+    l_d[gid, rank] = lens[order]
+    drop_d = np.zeros((len(starts), Rk), bool)
+    for r in range(1, Rk):
+        d = (b_d[:, r:r + 1] - b_d[:, :r]) & 0xFFFFFFFF
+        d[d >= 2**31] -= 2**32
+        drop_d[:, r] = (np.abs(d) < l_d[:, r:r + 1]).any(axis=1)
+    keep[order] = ~drop_d[gid, rank]
+    return keep
+
+
+def phase0_rows(pairs, rows: np.ndarray, reads, k: int, skip: np.ndarray,
+                s: int, e: int, part_offset: int = 0,
+                part_len: Optional[int] = None):
+    """Rows [s, e) of normalize_records(pairs[rows], ...): (p1, p2, s1,
+    lens, keep) with mate 1 the leftmost, equal in value, as int32 p1,
+    p2 [e - s, L] and lens, int8 s1 and bool keep.  skip is
+    phase0_skip(pairs, rows, part_offset, part_len); only records
+    rows[s:e] are read."""
+    r = rows[s:e]
+    L = pairs.pos_map.shape[2]
+    lens = pairs.source_size[r, 0].astype(np.int32)
+    p = _part_local(pairs.pos_map[r], part_offset, part_len)
+    fr = pairs.fr[r]
+    pid = pairs.pair_id[r]
+    col = np.arange(L)[None, :]
+    seqs = np.empty((len(r), 2, L), np.int8)
+    for mate in (0, 1):
+        raw = reads.data[2 * pid + mate]
+        if raw.shape[1] < L:
+            raw = np.concatenate(
+                [raw, np.full((len(r), L - raw.shape[1]), 4, np.int8)], 1)
+        # the reverse complement of the length-l prefix, left-aligned
+        rc = np.take_along_axis(_COMP[raw[:, ::-1]],
+                                np.clip(col + (L - lens)[:, None], 0, L - 1),
+                                axis=1)
+        rc = np.where(col < lens[:, None], rc, np.int8(4))
+        seqs[:, mate] = np.where(fr[:, mate, None] == 1, rc, raw[:, :L])
+    keep = (skip[s:e] & (fr[:, 0] != fr[:, 1])
+            & (p[:, 0] >= 0).any(axis=1) & (p[:, 1] >= 0).any(axis=1))
+    p1, p2 = p[:, 0], p[:, 1]
+    # leftmost-mate swap: the first index < len-k where both are aligned
+    # decides (reference :1672-1679)
+    both = (p1 >= 0) & (p2 >= 0) & (col < (lens - k)[:, None])
+    gt, lt = both & (p1 > p2), both & (p1 < p2)
+    first_gt = np.where(gt.any(1), gt.argmax(1), L)
+    first_lt = np.where(lt.any(1), lt.argmax(1), L)
+    swap = (first_gt < first_lt)[:, None]
+    return (np.where(swap, p2, p1), np.where(swap, p1, p2),
+            np.where(swap, seqs[:, 1], seqs[:, 0]), lens, keep)
+
+
+def _upload(host, device):
+    """phase0_rows' arrays as the tensors `_chunk_update` takes, on
+    `device`."""
+    return [torch.from_numpy(a).to(device) for a in host]
 
 
 def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
                             insert_variation: int, part_offset: int = 0,
-                            chunk_records: int = 16384,
+                            chunk_records: int = CHUNK_RECORDS,
                             stats: Optional[KmerBuildStats] = None, *,
                             device,
-                            mark: Optional[Callable[[str], None]] = None
+                            mark: Optional[Callable[[str], None]] = None,
+                            rows: Optional[np.ndarray] = None
                             ) -> KmerBuildStats:
     """Drop-in for kmer_layer.build_kmer_layer with phases 1-5 on
     `device` ("cuda" on the card; "cpu" runs the same ops on the host).
+
+    rows, when given, are the indices of the records of `pairs` to build
+    from, in order (the part's accepted records): the build reads them
+    through it and copies none of `pairs`.  Phase 0 is streamed: the
+    duplicate-placement skip once over the records' [M] arrays
+    (phase0_skip), then each chunk's rows (phase0_rows) right before its
+    upload, so no [M, L] array of phase 0 exists.
 
     chunk_records matches the host oracle's default: KmerBuildStats
     (groups, dropped_*) depend on the chunk boundaries, so the pipeline's
     kmer stats stay comparable when toggling cfg.graph_build.
 
     mark(name), when given, is called after each stage of the build:
-    "normalize" (phase 0 on the host), "h2d" (the state, then each
-    chunk's inputs, on the device), the phases of `_chunk_update`, and
-    "d2h" (the state back in g).  chip_smoke.py records a CUDA event there
-    to split the build's time.
+    "normalize" (the skip, on the host), "h2d" (the state, then each
+    chunk's phase 0 rows and their upload), the phases of
+    `_chunk_update`, and "d2h" (the state back in g).  chip_smoke.py
+    records a CUDA event there to split the build's time.
     """
     if k > 10:
         raise ValueError(f"k-mer size {k} > 10: the 3-bit k-mer packing "
                          f"holds at most 10 bases")
     st = stats or KmerBuildStats()
-    if pairs.n == 0:
+    rows = np.arange(pairs.n) if rows is None else np.asarray(rows)
+    M = len(rows)
+    if M == 0:
         return st
     dev = torch.device(device)
-    p1, p2, s1, lens, keep = normalize_records(
-        pairs, reads, k, part_offset, g.part_len)
+    skip = phase0_skip(pairs, rows, part_offset, g.part_len)
     if mark:
         mark("normalize")
-    if p1.shape[1] - k <= 0:
+    if pairs.pos_map.shape[2] - k <= 0:
         return st
     # state arrays span part_len + overflow_cap (record positions are
     # always < part_len, but the array axes must agree)
@@ -629,15 +733,18 @@ def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
         mark("h2d")
     win = 2 * insert_variation + 5 * EP
     dropped = torch.zeros(2, dtype=I64, device=dev)
-    for s in range(0, pairs.n, chunk_records):
-        e = min(s + chunk_records, pairs.n)
-        args = _chunk_inputs(p1, p2, s1, lens, keep, s, e, dev)
+    for s in range(0, M, chunk_records):
+        e = min(s + chunk_records, M)
+        host = phase0_rows(pairs, rows, reads, k, skip, s, e, part_offset,
+                           g.part_len)
+        args = _upload(host, dev)
+        del host
         if mark:
             mark("h2d")
-        tuples, rows, groups, dslots, dedges = _chunk_update(
+        tuples, rows_n, groups, dslots, dedges = _chunk_update(
             state, cmpack, *args, k=k, win=win, n_pos=n_pos, mark=mark)
         st.tuples += tuples
-        st.rows += rows
+        st.rows += rows_n
         st.groups += groups
         dropped[0] += dslots
         dropped[1] += dedges

@@ -39,13 +39,13 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from aligngraph_tpu_torch.config import EP
 from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
-from aligngraph_tpu_torch.graph.kmer_layer import (KmerBuildStats,
-                                                   normalize_records)
+from aligngraph_tpu_torch.graph.kmer_layer import KmerBuildStats
 from aligngraph_tpu_torch.graph.model import GraphTensors
 from aligngraph_tpu_torch.parallel.mesh import gather_blocks
 
@@ -156,8 +156,10 @@ def build_kmer_layer_sharded(g: GraphTensors, pairs, reads, k: int,
                              ) -> KmerBuildStats:
     """Drop-in for build_kmer_layer with the merge position-sharded over
     mesh (parallel/mesh.Mesh); every rank calls it together with the same
-    g, pairs and reads.  Phase 0 (normalize_records) runs on the host of
-    every rank; phases 1-5 on mesh.device.  At the end the owners' blocks
+    g, pairs and reads.  Phase 0 runs on the host of every rank: the
+    duplicate-placement skip over all records (kj.phase0_skip), then the
+    rows of the rank's slice of each chunk (kj.phase0_rows); phases 1-5
+    on mesh.device.  At the end the owners' blocks
     are gathered on every rank and every rank's g holds the whole k-mer
     layer; the statistics are summed over the ranks.
 
@@ -172,9 +174,9 @@ def build_kmer_layer_sharded(g: GraphTensors, pairs, reads, k: int,
     if pairs.n == 0:
         return st
     dev, S = mesh.device, mesh.world_size
-    p1, p2, s1, lens, keep = normalize_records(
-        pairs, reads, k, part_offset, g.part_len)
-    if p1.shape[1] - k <= 0:
+    rows = np.arange(pairs.n)
+    skip = kj.phase0_skip(pairs, rows, part_offset, g.part_len)
+    if pairs.pos_map.shape[2] - k <= 0:
         return st
     n_pos = int(g.km_cnt.shape[0])
     assert n_pos < (1 << 30)
@@ -184,10 +186,11 @@ def build_kmer_layer_sharded(g: GraphTensors, pairs, reads, k: int,
     win = 2 * insert_variation + 5 * EP
     counts = torch.zeros(5, dtype=I64, device=dev)
     for s, a, b in _slices(pairs.n, chunk_records or pairs.n, S, mesh.rank):
+        host = kj.phase0_rows(pairs, rows, reads, k, skip, a, b,
+                              part_offset, g.part_len)
         counts += _sharded_chunk(
-            mesh, state, cmpack,
-            *kj._chunk_inputs(p1, p2, s1, lens, keep, a, b, dev),
-            rec0=a - s, k=k, win=win, n_pos=n_pos, n_local=n_local)
+            mesh, state, cmpack, *kj._upload(host, dev), rec0=a - s, k=k,
+            win=win, n_pos=n_pos, n_local=n_local)
     dist.all_reduce(counts, group=mesh.group)
     kj._state_to_graph({f: gather_blocks(mesh, state[f][:n_local])
                         for f in kj.STATE_FIELDS}, g)

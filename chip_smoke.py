@@ -45,7 +45,8 @@ Phases, one line each, any failure raises (non-zero exit):
      and edge array and every build statistic equal; both walls and the
      peak device memory.  Then the device build over all accepted
      records (stats equal to HOST_KMER_STATS), split by CUDA events
-     (normalize = host phase 0, h2d, emit = emission and expansion, group,
+     (normalize = phase 0's duplicate skip on the host, h2d = each chunk's
+     phase 0 rows and their upload, emit = emission and expansion, group,
      rounds, edges, d2h), and one chunk's wall, device busy time and top
      10 CUDA ops under torch.profiler.
   multi: the multi-device paths (aligngraph_tpu_torch/parallel) in a
@@ -76,7 +77,8 @@ Phases, one line each, any failure raises (non-zero exit):
      path of python3 -m aligngraph_tpu_torch.bigscale) on "cuda" at 32 Mb,
      20x (3,200,000 pairs), --part 2, seed 11, graph_build="device",
      ratio_check=True, then Eval: walls per stage, peak device memory per
-     stage, the k-mer state's bytes (reckoned and allocated), host RSS;
+     stage, the k-mer state's bytes (reckoned and allocated), host RSS
+     (peak, and per stage its RSS, live heap and named arrays' bytes);
      every kernel launched; every dropped_* 0, extended > 0, Eval MPMB
      0.0, true contigs >= 95% of extended, and the extended contigs, Eval
      and the k-mer stats equal to the recorded BIG_EVAL and
@@ -781,14 +783,16 @@ def kmer_build(wl: dict) -> dict:
         split[name] = split.get(name, 0.0) + a.elapsed_time(b)
     phase("kmer", f"all {every.n} records ({-(-every.n // KMER_CHUNK)} "
           f"chunks): wall {wall:.3f} s; split, CUDA-event ms (normalize is "
-          f"host phase 0, the card idle): " + ", ".join(
+          f"phase 0's duplicate skip on the host, the card idle; h2d holds "
+          f"each chunk's phase 0 rows): " + ", ".join(
               f"{n} {t:.2f}" for n, t in split.items()))
 
     # one chunk's update: its wall, then torch.profiler's device time
-    p1, p2, s1, lens, keep = kj.normalize_records(recs, reads, k, 0,
-                                                  g0.part_len)
+    rows = np.arange(recs.n)
+    skip = kj.phase0_skip(recs, rows, 0, g0.part_len)
     cmpack = kj._cmpack(g0, "cuda")
-    args = kj._chunk_inputs(p1, p2, s1, lens, keep, 0, KMER_CHUNK, "cuda")
+    args = kj._upload(kj.phase0_rows(recs, rows, reads, k, skip, 0,
+                                     KMER_CHUNK, 0, g0.part_len), "cuda")
     win = 2 * iv + 5 * kj.EP
     n_pos = int(g0.km_cnt.shape[0])
 
@@ -1052,15 +1056,14 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
         kept["index"] = build_index(*args, **kw)
         return kept["index"]
 
-    def keep_part2(g, recs, *args, part_offset, **kw):
+    def keep_part2(g, recs, *args, part_offset, rows, **kw):
         if part_offset:                  # part 2, before its build
             t = time.perf_counter()
             kept.update(g0=copy.deepcopy(g), lo=part_offset,
-                        recs=dataclasses.replace(recs, **{
-                            f.name: getattr(recs, f.name)[:n_rec]
-                            for f in dataclasses.fields(recs)}))
+                        recs=driver._subset_pairs(recs, rows[:n_rec]))
             kept["copy_s"] += time.perf_counter() - t
-        return build_kmer(g, recs, *args, part_offset=part_offset, **kw)
+        return build_kmer(g, recs, *args, part_offset=part_offset,
+                          rows=rows, **kw)
 
     driver.build_index, driver.build_kmer_layer_device = keep_index, keep_part2
     try:
@@ -1090,6 +1093,12 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
           f"(every phase and the copy of part 2) {line1['max_rss_gb']} GB of "
           f"{line1['host_ram_bytes'] / 1e9:.1f}; launches {launches}; lanes "
           f"{lanes}")
+    gb = {k: dict(rss=round(v["host_rss_bytes"] / 1e9, 2),
+                  heap=round((v["host_heap_bytes"] or 0) / 1e9, 2),
+                  **{a: round(b / 1e9, 3) for a, b in v["arrays"].items()})
+          for k, v in line1["stage_memory"].items()}
+    phase("big", f"host GB at each stage's end (RSS, live heap, arrays; "
+          f"this process holds every earlier phase's objects): {gb}")
     phase("big", f"extended {line1['extended']} ({line1['extended_bases']} "
           f"bases), remaining {line1['remaining']}, aligned pair fraction "
           f"{line1['aligned_pair_fraction']}; kmer stats "
