@@ -30,6 +30,9 @@ reassembly pipeline with its aligners on one device:
   __main__.py             python -m aligngraph_tpu_torch (the CLI)
   compat/                 bowtie2 / pblat / nucmer compatible CLIs
   workload.py             the synthetic benchmark workloads
+  bench.py, bench_pipeline.py, ecoli_scale.py, bigscale.py
+                          the JAX system's benchmark scripts on the port
+                          (python3 -m aligngraph_tpu_torch.<name>)
   profile_align.py        per-layer host times and device idle share of
                           one align (python3 -m
                           aligngraph_tpu_torch.profile_align)

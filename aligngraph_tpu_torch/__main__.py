@@ -1,7 +1,9 @@
 """CLI entrypoint of the PyTorch / CUDA port — C1 (`main` + `print`,
 AlignGraph.cpp:4696-4796, 4304-4327).  The same flag surface as the
 reference and as `python -m aligngraph_tpu`; the aligners run on the CUDA
-device (there is no CPU fallback: without a GPU the command fails):
+device (there is no CPU fallback: without a GPU the command fails), and so
+does the k-mer layer build for --kMer <= 10 (pipeline/driver.graph_build_for;
+the JAX CLI builds it on the host, into the same graph):
 
   python -m aligngraph_tpu_torch --read1 r1.fa --read2 r2.fa --contig c.fa
       --genome g.fa --distanceLow 300 --distanceHigh 700
@@ -11,7 +13,8 @@ device (there is no CPU fallback: without a GPU the command fails):
        --resume]
 
 From Python, main(argv, device="cpu") runs the same pipeline on the plain
-CPU versions of the kernels.
+CPU versions of the kernels, with the host k-mer build.  The last line
+names the k-mer build that ran.
 """
 
 from __future__ import annotations
@@ -61,11 +64,13 @@ def main(argv=None, device="cuda") -> int:
         if not cfg.resume:
             print(f"error: {e}\n\n{USAGE}", file=sys.stderr)
             return 2
-    result = run_pipeline(cfg, checkpoint=ckpt, device=device)
+    result = run_pipeline(cfg, checkpoint=ckpt, device=device,
+                          auto_graph_build=True)
     print(f"FINISHED: {len(result.extended_ids)} extended contigs, "
           f"{len(result.remaining_ids)} remaining, "
           f"{result.wall_seconds:.1f}s total "
-          f"({result.align_seconds:.1f}s alignment)")
+          f"({result.align_seconds:.1f}s alignment), k-mer build "
+          f"{result.stats['graph_build']}")
     return 0
 
 

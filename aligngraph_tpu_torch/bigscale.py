@@ -103,7 +103,7 @@ def host_ram_bytes() -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def _json_value(v):
+def json_value(v):
     if isinstance(v, np.floating):
         return float(v)
     if isinstance(v, np.integer):
@@ -198,7 +198,7 @@ def run(gmb: float, depth: float, part: int, *, device, work_dir):
     m["eval_s"] = round(time.time() - t0, 1)
     if dev.type == "cuda":
         m["device_peak_bytes"] = torch.cuda.max_memory_allocated()
-    line2 = {k: _json_value(v) for k, v in m.items()}
+    line2 = {k: json_value(v) for k, v in m.items()}
     print(json.dumps(line2), flush=True)
     return line1, line2, dict(result=res, reads=reads, genome=genome,
                               cfg=cfg)

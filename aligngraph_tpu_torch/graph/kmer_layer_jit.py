@@ -46,6 +46,9 @@ I64 = torch.int64
 NC = CPO * CPM
 # records a chunk of the build takes (the host oracle's default)
 CHUNK_RECORDS = 16384
+# the largest k-mer the build takes: it packs a k-mer 3 bits a base into
+# an int32 key
+MAX_K = 10
 # the row fields phase 3 needs, and its group-key fields (most-major first)
 ROW_FIELDS = ("pos", "arrival", "weight", "contig", "coff", "contig0",
               "coff0", "gpos0", "s_pack", "s_len", "s0")
@@ -709,9 +712,9 @@ def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
     `_chunk_update`, and "d2h" (the state back in g).  chip_smoke.py
     records a CUDA event there to split the build's time.
     """
-    if k > 10:
-        raise ValueError(f"k-mer size {k} > 10: the 3-bit k-mer packing "
-                         f"holds at most 10 bases")
+    if k > MAX_K:
+        raise ValueError(f"k-mer size {k} > {MAX_K}: the 3-bit k-mer "
+                         f"packing holds at most {MAX_K} bases")
     st = stats or KmerBuildStats()
     rows = np.arange(pairs.n) if rows is None else np.asarray(rows)
     M = len(rows)

@@ -46,6 +46,15 @@ def reset_launches() -> None:
         LANES_BY_L.clear()
 
 
+def launches_by_length() -> dict:
+    """The counts since the last reset: "kernel L" -> {"launches",
+    "lanes"}."""
+    with _count_lock:
+        return {f"{n} L{L}": {"launches": LAUNCHES_BY_L[(n, L)],
+                              "lanes": LANES_BY_L[(n, L)]}
+                for (n, L) in sorted(LAUNCHES_BY_L)}
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
            device: torch.device) -> None:
     if t.device != device or t.device.type != "cuda":

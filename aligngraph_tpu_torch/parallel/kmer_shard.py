@@ -167,9 +167,9 @@ def build_kmer_layer_sharded(g: GraphTensors, pairs, reads, k: int,
     step); chunk_records=c splits each chunk of c records across the
     ranks and gives the statistics of build_kmer_layer_device(...,
     chunk_records=c) at any world size."""
-    if k > 10:
-        raise ValueError(f"k-mer size {k} > 10: the 3-bit k-mer packing "
-                         f"holds at most 10 bases")
+    if k > kj.MAX_K:
+        raise ValueError(f"k-mer size {k} > {kj.MAX_K}: the 3-bit k-mer "
+                         f"packing holds at most {kj.MAX_K} bases")
     st = stats or KmerBuildStats()
     if pairs.n == 0:
         return st

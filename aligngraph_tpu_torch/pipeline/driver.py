@@ -51,7 +51,7 @@ from aligngraph_tpu_torch.utils.log import stage_banner, get_logger, log_memory
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
 from aligngraph_tpu_torch.align.read_aligner import ReadAligner
 from aligngraph_tpu_torch.graph.kmer_layer_jit import (
-    CHUNK_RECORDS, build_kmer_layer_device)
+    CHUNK_RECORDS, MAX_K, build_kmer_layer_device)
 from aligngraph_tpu_torch.ops.seeding import build_index
 from aligngraph_tpu_torch.pipeline.refinement import RefinementResult, refine
 
@@ -318,6 +318,18 @@ class _StageMemory:
             self.base = None
 
 
+def graph_build_for(device, k_mer: int) -> str:
+    """The k-mer layer build that the port's entry points run on `device`:
+    "device" on a CUDA device when k_mer <= MAX_K (the device build packs
+    a k-mer 3 bits a base into an int32 key), else "host".  Both builds
+    write the same graph bit for bit.  Config's default, "host", is the
+    JAX package's, chosen for a TPU behind a slow link (config.py); on a
+    CUDA card the device build is the faster one."""
+    if torch.device(device).type == "cuda" and k_mer <= MAX_K:
+        return "device"
+    return "host"
+
+
 def check_ratio(rali: PairAlignments, n_pairs: int) -> float:
     """C25 (`checkRatio`, AlignGraph.cpp:3751-3819): fraction of pairs
     passing the C13 filters; warns below 25%."""
@@ -336,10 +348,17 @@ def run_pipeline(cfg: Config,
                  reads: Optional[Reads] = None,
                  contigs: Optional[Contigs] = None,
                  genome: Optional[Genome] = None,
-                 checkpoint=None, *, device) -> PipelineResult:
+                 checkpoint=None, *, device,
+                 auto_graph_build: bool = False) -> PipelineResult:
     """The whole reassembly; the aligners, and the k-mer layer build when
     cfg.graph_build is "device", run on `device` ("cuda" launches the
     hand-written kernels, "cpu" runs their plain versions).
+
+    auto_graph_build: cfg.graph_build is replaced by graph_build_for(
+    device, cfg.k_mer), after --resume has reloaded the command (which
+    does not carry graph_build).  The build that ran goes to
+    stats["graph_build"], the seconds of stage (0) to
+    stats["formalize_seconds"].
 
     Memory per stage goes to stats["memory"] (_StageMemory): on a CUDA
     device each stage resets torch.cuda's peak memory statistics."""
@@ -358,8 +377,16 @@ def run_pipeline(cfg: Config,
         log.info("resuming from checkpoint %d", resume_from)
     elif checkpoint is not None:
         checkpoint.save_command(cfg)
+    if auto_graph_build:
+        cfg = dataclasses.replace(
+            cfg, graph_build=graph_build_for(device, cfg.k_mer))
+        log.info("k-mer layer build: %s (device %s, k %d; the device "
+                 "build takes k <= %d)", cfg.graph_build, device,
+                 cfg.k_mer, MAX_K)
+    stats["graph_build"] = cfg.graph_build
 
     stage_banner(0, "formalizing inputs")
+    tf = time.time()
     if reads is None:
         # bounded resident read memory (C14, AlignGraph.cpp:37, 361-404):
         # large inputs go to a disk-backed memmap filled streamingly; the
@@ -378,6 +405,7 @@ def run_pipeline(cfg: Config,
     if genome is None:
         genome = formalize_genome(cfg.genome, cfg.part)
     cfg.validate(max_read_length=reads.max_read_length or None)
+    stats["formalize_seconds"] = time.time() - tf
     stats["n_pairs"] = reads.n_pairs
     stats["n_contigs"] = contigs.n_real
     stats["n_parts"] = genome.n_parts

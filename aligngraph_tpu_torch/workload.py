@@ -15,10 +15,14 @@ make_bigscale_workload: scripts/bigscale_run.py's workload (the same
 generators and order, seed 11), for the big-genome run
 (aligngraph_tpu_torch/bigscale.py).
 
+write_reads_fasta: a workload's reads as the CLI's two FASTA files.
+
 The same arguments give the same arrays as the benchmark scripts.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -132,15 +136,45 @@ def cut_contigs(rng, target, mean_len=3000, gap_lo=50, gap_hi=400):
 
 
 def make_pipeline_workload(genome_len=4_600_000, depth=25.0, read_len=100,
-                           seed=7):
+                           seed=7, n_pairs=None):
     """bench_pipeline.py's workload -> (target, ref, data, lens,
-    contig_seqs); depth * genome_len / (2 * read_len) pairs."""
-    n_pairs = int(depth * genome_len / (2 * read_len))
+    contig_seqs); n_pairs, by default depth * genome_len / (2 *
+    read_len) pairs."""
+    if n_pairs is None:
+        n_pairs = int(depth * genome_len / (2 * read_len))
     rng = np.random.default_rng(seed)
     target = rng.integers(0, 4, genome_len).astype(np.int8)
     ref = mutate_fast(rng, target)
     data, lens = simulate_pe_reads(rng, target, n_pairs, read_len=read_len)
     return target, ref, data, lens, cut_contigs(rng, target)
+
+
+# pairs write_reads_fasta formats at a time
+FASTA_BLOCK_PAIRS = 1 << 16
+
+
+def write_reads_fasta(d, data, lens, width=60):
+    """Mate-interleaved reads (data [2 * n_pairs, L] int8, lens [n_pairs])
+    as d/r1.fa and d/r2.fa, pair i named p{i}: the bytes that
+    io.fasta.write_fasta writes for [f"p{i}" ...] and [decode(data[2 * i
+    + mate, :lens[i]]) ...], formatted a block of pairs at a time."""
+    from aligngraph_tpu_torch.io.fasta import ALPHABET
+
+    dec = np.frombuffer(ALPHABET, np.uint8)
+    n, L = len(lens), data.shape[1]
+    for mate in (0, 1):
+        with open(os.path.join(d, f"r{mate + 1}.fa"), "wb") as f:
+            for s in range(0, n, FASTA_BLOCK_PAIRS):
+                e = min(s + FASTA_BLOCK_PAIRS, n)
+                buf = dec[data[2 * s + mate:2 * e:2]].tobytes()
+                out = []
+                for i in range(s, e):
+                    o = (i - s) * L
+                    seq = buf[o:o + int(lens[i])]
+                    out.append(b">p%d\n" % i)
+                    out.extend(seq[j:j + width] + b"\n"
+                               for j in range(0, len(seq), width))
+                f.write(b"".join(out))
 
 
 def make_bigscale_workload(genome_len, depth, seed=11, read_len=100):

@@ -25,9 +25,12 @@ Phases, one line each, any failure raises (non-zero exit):
      per shape.
   4. read aligner: ReadAligner.build(..., device="cuda").align on the
      benchmark workload (4.6 Mb genome, 100,000 pairs of 100 bp, insert
-     500, 1% SNPs, seed 0, batch_pairs 32,768); 3 timed runs after a
-     warm-up; every kernel must have launched.  Each path prints its
-     launches and lanes per kernel and read length L.
+     500, 1% SNPs, seed 0, batch_pairs 32,768) through
+     aligngraph_tpu_torch.bench.run: 3 timed runs after a warm-up, which
+     must give the same records, and each kernel's device ms over one
+     more align under torch.profiler; every kernel must have launched.
+     Each path prints its launches and lanes per kernel and read length
+     L.
   5. check: align on the first 2,048 pairs on "cuda" and on "cpu" (the
      plain path); every PairAlignments field must be equal.
   6. pipeline small: tests/test_pipeline.py's sim (seed 42, 30 kb, 3,000
@@ -35,7 +38,9 @@ Phases, one line each, any failure raises (non-zero exit):
      on "cuda" and on "cpu", with --misassemblyRemoval and with --part 2
      --iterativeMap: the extended, remaining and corrected FASTA and every
      tmp/ stage file byte-equal, every kernel launched on "cuda" in the
-     first; Eval of the extended contigs on both devices equal.
+     first; the CLI's k-mer build on the device on "cuda" and on the
+     host on "cpu", so the bytes hold the two builds equal; Eval of the
+     extended contigs on both devices equal.
   kmer: the device k-mer layer build on bench_pipeline.py's workload
      (seed 7, 4.6 Mb, depth 25 = 575,000 pairs of 100 bp, 1,424 draft
      contigs, distance 300-700, one part): both aligners on "cuda" as the
@@ -66,13 +71,17 @@ Phases, one line each, any failure raises (non-zero exit):
      must exit 0.  Each wall beside nvidia-smi's name and power limit;
      the group's first collective (NCCL's communicator start) is timed
      on its own.  No fallback to gloo or the CPU.
-  7. pipeline full: run_pipeline on "cuda" with graph_build="device" on
-     the same workload, then Eval of the extended contigs against the
-     target on "cuda": per-stage seconds, launches and lanes per kernel.
-     The k-mer build statistics must equal the host build's on this
-     workload (HOST_KMER_STATS) and Eval the JAX package's BENCH_PIPE.json
-     (identity to 4 places); fails too if the native C++ traversal did
-     not load.
+  7. pipeline full: aligngraph_tpu_torch.bench_pipeline's run_pipeline
+     on "cuda" (the device k-mer build, by the CLI's rule) on the same
+     workload, then Eval of the extended contigs against the target on
+     "cuda": per-stage seconds, launches and lanes per kernel, and
+     bench_pipeline's JSON line.  The k-mer build statistics must equal
+     the host build's on this workload (HOST_KMER_STATS) and Eval the JAX
+     package's BENCH_PIPE.json (identity to 4 places); fails too if the
+     native C++ traversal did not load.  Then the CLI (main, on "cuda")
+     from the workload's reads written as r1.fa / r2.fa: the k-mer layer
+     built on the device, extended.fa, remaining.fa and the tmp/ stage
+     files byte-equal to run_pipeline's; the formalize and CLI walls.
   big: the big-genome run (aligngraph_tpu_torch.bigscale.run, the code
      path of python3 -m aligngraph_tpu_torch.bigscale) on "cuda" at 32 Mb,
      20x (3,200,000 pairs), --part 2, seed 11, graph_build="device",
@@ -90,15 +99,15 @@ Phases, one line each, any failure raises (non-zero exit):
      host oracle on the part's first 4 chunks of 16,384 accepted records:
      all 13 arrays and the stats equal.
 Then a JSON line of per-kernel results (launches: the main paths',
-run_pipeline then Eval at 4.6 Mb, then phase big), nvidia-smi's line, and
-the last line {"ok": true, "device": {...}}.
+run_pipeline then Eval at 4.6 Mb, the CLI at 4.6 Mb, then phase big),
+nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -452,10 +461,7 @@ def counted(fn):
     k.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    by_l = {f"{n} L{L}": {"launches": k.LAUNCHES_BY_L[(n, L)],
-                          "lanes": k.LANES_BY_L[(n, L)]}
-            for (n, L) in sorted(k.LAUNCHES_BY_L)}
-    return out, dict(k.LAUNCHES), dict(k.LANES), by_l
+    return out, dict(k.LAUNCHES), dict(k.LANES), k.launches_by_length()
 
 
 def require_launched(path: str, launches: dict, by_l: dict,
@@ -474,59 +480,34 @@ def require_launched(path: str, launches: dict, by_l: dict,
 
 
 def read_aligner_path(results: dict) -> dict:
-    """Phases 4-5: the read aligner on the bench.py workload.  Returns the
-    aligner, the reads and the records of the first timed align."""
-    from aligngraph_tpu_torch import Config, ReadAligner, Reads
-    from aligngraph_tpu_torch.ops.seeding import build_index
-    from aligngraph_tpu_torch.workload import make_workload
+    """Phases 4-5: the read aligner on the bench.py workload through
+    aligngraph_tpu_torch.bench.run (3 timed aligns, which must give the
+    same records; the kernels' counts are set to 0 just before them and
+    read just after, inside run).  Returns the aligner, the reads, the
+    records of the first timed align and the walls."""
+    from aligngraph_tpu_torch import ReadAligner, Reads
+    from aligngraph_tpu_torch import bench
 
     n_pairs, batch = 100_000, 32_768
-    ref, data, lens = make_workload(n_pairs=n_pairs)
-    reads = Reads(n_pairs, data.shape[1], data, lens)
-    cfg = Config(distance_low=100, distance_high=900)
-    t0 = time.perf_counter()
-    index = build_index(ref, cfg.seed_len)
-    index_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    aligner = ReadAligner.from_index(ref, index, cfg, batch_pairs=batch,
-                                     device="cuda")
-    torch.cuda.synchronize()
-    phase("reads", f"index build (host) {index_s:.2f} s, to device "
-          f"{time.perf_counter() - t0:.2f} s; bucket table "
-          f"{aligner.index.bucket_lo.numel()} int32, suffix_bits "
-          f"{aligner.index.suffix_bits}")
-    t0 = time.perf_counter()
-    aligner.align(Reads(batch, data.shape[1], data[:2 * batch],
-                        lens[:batch]))
-    tail = n_pairs % batch
-    aligner.align(Reads(tail, data.shape[1], data[:2 * tail], lens[:tail]))
-    torch.cuda.synchronize()
-    phase("reads", f"warm-up {time.perf_counter() - t0:.2f} s")
-
-    def timed_aligns():
-        walls, outs = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            outs.append(aligner.align(reads))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        return walls, outs
-
-    (walls, outs), launches, lanes, by_l = counted(timed_aligns)
-    require_launched("read_aligner", launches, by_l, results)
-    for other in outs[1:]:
-        for f in FIELDS:
-            if not np.array_equal(getattr(other, f), getattr(outs[0], f)):
-                raise AssertionError(f"align is not deterministic: {f}")
-    res = outs[0]
-    aligned = 2 * len(np.unique(res.pair_id))
-    share = aligned / (2 * n_pairs)
-    med = statistics.median(walls)
-    phase("reads", f"walls {[round(w, 4) for w in walls]} s; median "
-          f"{med:.4f} s, min {min(walls):.4f} s; aligned reads/s median "
-          f"{aligned / med:.1f}, best {aligned / min(walls):.1f}; aligned "
-          f"{aligned}/{2 * n_pairs} ({share:.4f}); records {res.n}; "
-          f"launches {launches}; lanes {lanes}")
+    rep, ctx = bench.run(n_pairs, 4_600_000, batch, repeats=3,
+                         device="cuda")
+    phase("reads", f"index build and upload {rep['index_s']:.2f} s; warm-up "
+          f"{rep['warm_s']:.2f} s")
+    require_launched("read_aligner", rep["launches"], rep["launches_by_l"],
+                     results)
+    res, walls, aligned = ctx["records"], rep["walls"], rep["aligned"]
+    share = aligned / rep["total_reads"]
+    phase("reads", f"bench.run: {json.dumps(rep['line'])}; walls "
+          f"{[round(w, 4) for w in walls]} s (records equal in each); "
+          f"median {rep['median']:.4f} s, min {rep['wall']:.4f} s; aligned "
+          f"reads/s median {rep['rps_median']:.1f}, best "
+          f"{aligned / rep['wall']:.1f}; aligned {aligned}/"
+          f"{rep['total_reads']} ({share:.4f}); records {res.n}; launches "
+          f"{rep['launches']}; lanes {rep['lanes']}")
+    phase("reads", "kernel device ms over one more align (torch.profiler): "
+          + "; ".join(f"{KERNEL_NAMES[n]} {k['device_ms']:.4f} ms in "
+                      f"{k['events']} events, {k['launches']} launches"
+                      for n, k in rep["kernel_ms"].items()))
     if not share > 0.9:
         raise AssertionError(f"aligned share {share:.4f} <= 0.9")
     if res.pos_map.shape != (res.n, 2, L_MAIN):
@@ -534,18 +515,40 @@ def read_aligner_path(results: dict) -> dict:
 
     # the CUDA path against the plain CPU path on 2,048 pairs
     n_chk = 2048
+    data, lens = ctx["reads"].data, ctx["reads"].lengths
     sub = Reads(n_chk, data.shape[1], data[:2 * n_chk], lens[:n_chk])
     t0 = time.perf_counter()
-    got = aligner.align(sub)
-    cpu = ReadAligner.from_index(ref, index, cfg, batch_pairs=batch,
-                                 device="cpu").align(sub)
+    got = ctx["aligner"].align(sub)
+    cpu = ReadAligner.build(ctx["ref"], ctx["cfg"], batch_pairs=batch,
+                            device="cpu").align(sub)
     for f in FIELDS:
         a, b = getattr(got, f), getattr(cpu, f)
         if a.dtype != b.dtype or not np.array_equal(a, b):
             raise AssertionError(f"cuda != cpu on field {f}")
     phase("check", f"cuda == cpu on {n_chk} pairs, {got.n} records, every "
           f"field ({time.perf_counter() - t0:.1f} s)")
-    return dict(aligner=aligner, reads=reads, records=res, walls=walls)
+    return dict(aligner=ctx["aligner"], reads=ctx["reads"], records=res,
+                walls=walls)
+
+
+@contextlib.contextmanager
+def pipeline_results():
+    """driver.run_pipeline wrapped for the block: each call's
+    PipelineResult goes to the list it yields (the CLI looks run_pipeline
+    up when it runs)."""
+    from aligngraph_tpu_torch.pipeline import driver
+
+    run, kept = driver.run_pipeline, []
+
+    def keep(*args, **kw):
+        kept.append(run(*args, **kw))
+        return kept[-1]
+
+    driver.run_pipeline = keep
+    try:
+        yield kept
+    finally:
+        driver.run_pipeline = run
 
 
 def pipeline_files(out: Path) -> dict:
@@ -606,20 +609,28 @@ def pipeline_small(results: dict, work: Path) -> None:
             os.chdir(out)                   # the CLI's work dir is ./tmp
             t0 = time.perf_counter()
             try:
-                rc, launches, lanes, by_l = counted(
-                    lambda: cli.main(argv + flags, device=dev))
+                with pipeline_results() as kept:
+                    rc, launches, lanes, by_l = counted(
+                        lambda: cli.main(argv + flags, device=dev))
             finally:
                 os.chdir(cwd)
             wall = time.perf_counter() - t0
             if rc != 0:
                 raise AssertionError(f"CLI {name} on {dev} exited {rc}")
+            # the CLI builds the k-mer layer on the card, on the host on
+            # the CPU: cuda == cpu below holds the two builds equal too
+            build = kept[0].stats["graph_build"]
+            if build != {"cuda": "device", "cpu": "host"}[dev]:
+                raise AssertionError(f"CLI {name} on {dev}: k-mer build "
+                                     f"{build}")
             if dev == "cuda" and name == "misassembly":
                 require_launched("pipeline_small", launches, by_l,
                                  results)
             files[dev] = pipeline_files(out)
             evals[dev] = evaluate(work / "target.fa", out / "extended.fa",
                                   device=dev)
-            phase("small", f"{name} {dev}: CLI wall {wall:.2f} s, launches "
+            phase("small", f"{name} {dev}: k-mer build {build}, CLI wall "
+                  f"{wall:.2f} s, launches "
                   f"{launches}, lanes {lanes}; Eval {evals[dev]}")
         if sorted(files["cuda"]) != sorted(files["cpu"]) or \
                 not set(want) <= set(files["cuda"]):
@@ -639,7 +650,8 @@ def pipeline_small(results: dict, work: Path) -> None:
 
 # the JAX package's figures on the same workload (BENCH_PIPE.json)
 BENCH_PIPE_EVAL = {"extended": 49, "n_true_contigs": 49, "n50": 137_621,
-                   "average_identity": 0.9993, "mpmb": 0.0}
+                   "covered_length": 4_575_555, "average_identity": 0.9993,
+                   "mpmb": 0.0}
 # the host k-mer build's statistics on the same workload at the default
 # chunk of 16,384 records (BENCH_PIPE.json; the port's host build gave the
 # same on the card)
@@ -654,36 +666,20 @@ KMER_CHUNKS = 4
 
 
 def full_workload(work: Path, **size) -> dict:
-    """bench_pipeline.py's workload as FASTA files in work, its config
-    and its formalized inputs (size: make_pipeline_workload's genome_len
-    and depth, for a smaller copy)."""
-    from aligngraph_tpu_torch import (Config, Reads, decode,
-                                      formalize_contigs, formalize_genome,
-                                      write_fasta)
-    from aligngraph_tpu_torch.workload import make_pipeline_workload
+    """bench_pipeline.py's workload as aligngraph_tpu_torch.bench_pipeline
+    prepares it (FASTA files in work, its config, the reads), with the
+    contigs and the genome formalized for the kmer and multi phases
+    (size: prepare's genome_len and depth, for a smaller copy)."""
+    from aligngraph_tpu_torch import bench_pipeline
+    from aligngraph_tpu_torch import formalize_contigs, formalize_genome
 
     t0 = time.perf_counter()
-    target, ref, data, lens, contig_seqs = make_pipeline_workload(**size)
-    work.mkdir()
-    write_fasta(work / "genome.fa", ["chr"], [decode(ref)])
-    write_fasta(work / "target.fa", ["chr"], [decode(target)])
-    write_fasta(work / "contigs.fa",
-                [f"c{i}" for i in range(len(contig_seqs))],
-                [decode(c) for c in contig_seqs])
-    n_pairs = len(lens)
-    cfg = Config(read1="-", read2="-", contig=str(work / "contigs.fa"),
-                 genome=str(work / "genome.fa"), distance_low=300,
-                 distance_high=700,
-                 extended_contig=str(work / "extended.fa"),
-                 remaining_contig=str(work / "remaining.fa"),
-                 work_dir=str(work / "tmp"))
-    wl = dict(work=work, cfg=cfg,
-              reads=Reads(n_pairs, data.shape[1], data, lens),
-              contigs=formalize_contigs(cfg.contig),
-              genome=formalize_genome(cfg.genome, 1))
-    phase("full", f"workload: genome {len(target)}, {n_pairs} pairs, "
-          f"{len(contig_seqs)} draft contigs ({time.perf_counter() - t0:.1f}"
-          f" s)")
+    wl = bench_pipeline.prepare(work, **size)
+    wl.update(contigs=formalize_contigs(wl["cfg"].contig),
+              genome=formalize_genome(wl["cfg"].genome, 1))
+    phase("full", f"workload: genome {wl['genome'].total_len}, "
+          f"{wl['reads'].n_pairs} pairs, {wl['n_draft_contigs']} draft "
+          f"contigs ({time.perf_counter() - t0:.1f} s)")
     return wl
 
 
@@ -961,24 +957,19 @@ def multi_device(results: dict, ra: dict, km: dict, wl: dict,
           f"{smi}")
 
 
-def pipeline_full(results: dict, wl: dict) -> None:
-    """Phase 7: run_pipeline with the device k-mer build and Eval on cuda
-    at bench_pipeline.py's workload."""
-    import dataclasses
+def pipeline_full(results: dict, wl: dict, smi: str) -> None:
+    """Phase 7: aligngraph_tpu_torch.bench_pipeline's run_pipeline (the
+    device k-mer build, by the CLI's rule) and Eval on cuda at
+    bench_pipeline.py's workload; then the CLI from FASTA files on the
+    same workload (cli_full)."""
+    from aligngraph_tpu_torch import bench_pipeline
 
-    from aligngraph_tpu_torch.evaluate.evaluate import evaluate
-    from aligngraph_tpu_torch.pipeline.driver import run_pipeline
-
-    work = wl["work"]
-    cfg = dataclasses.replace(wl["cfg"], graph_build="device")
-    t0 = time.perf_counter()
-    res, launches, lanes, by_l = counted(lambda: run_pipeline(
-        cfg, reads=wl["reads"], contigs=wl["contigs"], genome=wl["genome"],
-        device="cuda"))
-    wall = time.perf_counter() - t0
+    (res, wall), launches, lanes, by_l = counted(
+        lambda: bench_pipeline.pipeline(wl, device="cuda"))
     require_launched("pipeline_full", launches, by_l, results)
     st = res.stats["stage_seconds"]
-    phase("full", f"run_pipeline wall {wall:.2f} s; stages "
+    phase("full", f"run_pipeline wall {wall:.2f} s; k-mer build "
+          f"{res.stats['graph_build']}; stages "
           + ", ".join(f"{k} {st[k]:.2f} s" for k in
                       ("alignment", "contig_layer", "kmer_build",
                        "traverse", "refinement"))
@@ -988,29 +979,89 @@ def pipeline_full(results: dict, wl: dict) -> None:
           f"{lanes}; kmer stats {res.stats['kmer_build']}")
     if not res.stats["native_traversal"]:
         raise AssertionError("the native C++ traversal did not load")
+    if res.stats["graph_build"] != "device":
+        raise AssertionError(f"k-mer build {res.stats['graph_build']} on "
+                             f"cuda")
     if res.stats["kmer_build"] != HOST_KMER_STATS:
         raise AssertionError(f"device k-mer build stats "
                              f"{res.stats['kmer_build']} != the host "
                              f"build's {HOST_KMER_STATS}")
     t0 = time.perf_counter()
-    m, e_launches, e_lanes, e_by_l = counted(lambda: evaluate(
-        work / "target.fa", work / "extended.fa", device="cuda"))
+    line, e_launches, e_lanes, e_by_l = counted(
+        lambda: bench_pipeline.report(wl, res, wall, device="cuda"))
     eval_s = time.perf_counter() - t0
     require_launched("eval", e_launches, e_by_l, results)
     # the main path: run_pipeline, then Eval of its extended contigs
     for n, r in results.items():
         r["launches"] = launches[n] + e_launches[n]
-    got = {"extended": len(res.extended_ids), **m}
+    got = {"extended": line["extended"], **line["eval"]}
     phase("full", f"eval {eval_s:.2f} s, launches {e_launches}, lanes "
-          f"{e_lanes}; extended {len(res.extended_ids)} ("
-          f"{sum(len(s) for s in res.extended_seqs)} bases); Eval {m}")
+          f"{e_lanes}; bench_pipeline's line {json.dumps(line)}; {smi}")
     phase("full", "Eval vs the JAX package's BENCH_PIPE.json: " + ", ".join(
         f"{k} {got[k]} vs {v}" for k, v in BENCH_PIPE_EVAL.items()))
-    got["average_identity"] = round(got["average_identity"], 4)
     diff = {k: (got[k], v) for k, v in BENCH_PIPE_EVAL.items()
             if got[k] != v}
     if diff:
         raise AssertionError(f"Eval != BENCH_PIPE.json: {diff}")
+    cli_full(results, wl, smi)
+
+
+def cli_full(results: dict, wl: dict, smi: str) -> None:
+    """Phase 7, the CLI: the workload's reads as r1.fa and r2.fa (pair i
+    named p{i}), then python -m aligngraph_tpu_torch's main on cuda from
+    those files (formalize_reads in memory: 115 MB of FASTA is under
+    stream_reads_threshold): the k-mer layer built on the device, and
+    extended.fa, remaining.fa and the tmp/ stage files equal to the
+    in-memory run's byte for byte."""
+    from aligngraph_tpu_torch import __main__ as cli
+    from aligngraph_tpu_torch.workload import write_reads_fasta
+
+    work, cfg, reads = wl["work"], wl["cfg"], wl["reads"]
+    t0 = time.perf_counter()
+    write_reads_fasta(work, reads.data, reads.lengths)
+    write_s = time.perf_counter() - t0
+    out = work / "cli"
+    out.mkdir()
+    argv = ["--read1", str(work / "r1.fa"), "--read2", str(work / "r2.fa"),
+            "--contig", cfg.contig, "--genome", cfg.genome,
+            "--distanceLow", "300", "--distanceHigh", "700",
+            "--extendedContig", str(out / "extended.fa"),
+            "--remainingContig", str(out / "remaining.fa")]
+    cwd = os.getcwd()
+    os.chdir(out)                       # the CLI's work dir is ./tmp
+    t0 = time.perf_counter()
+    try:
+        with pipeline_results() as kept:
+            rc, launches, lanes, by_l = counted(
+                lambda: cli.main(argv, device="cuda"))
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}")
+    require_launched("cli_full", launches, by_l, results)
+    for n, r in results.items():
+        r["launches"] += launches[n]
+    res = kept[0]
+    names = ["extended.fa", "remaining.fa"] + [
+        f"tmp/{f}" for f in sorted(os.listdir(out / "tmp"))
+        if f.endswith(".fa")]
+    want = sorted(f"tmp/{f}" for f in os.listdir(work / "tmp")
+                  if f.endswith(".fa"))
+    diff = [f for f in names if (out / f).read_bytes()
+            != (work / f).read_bytes()]
+    if names[2:] != want or len(want) < 3 or diff:
+        raise AssertionError(f"CLI != the in-memory run: stage files "
+                             f"{names[2:]} vs {want}, differing {diff}")
+    if res.stats["graph_build"] != "device":
+        raise AssertionError(f"CLI k-mer build {res.stats['graph_build']}")
+    nbytes = sum((work / f).stat().st_size for f in ("r1.fa", "r2.fa"))
+    phase("full", f"CLI from FASTA ({reads.n_pairs} pairs, {nbytes} B, "
+          f"written in {write_s:.2f} s): formalize "
+          f"{res.stats['formalize_seconds']:.2f} s, run_pipeline "
+          f"{res.wall_seconds:.2f} s, CLI wall {wall:.2f} s; k-mer build "
+          f"{res.stats['graph_build']}; {names} equal to the in-memory "
+          f"run's, byte for byte; launches {launches}, lanes {lanes}; {smi}")
 
 
 # phase big: aligngraph_tpu_torch.bigscale at 32 Mb (two 16 Mb parts), 20x
@@ -1217,7 +1268,7 @@ def main() -> int:
         km = kmer_build(wl)
         multi_device(results, ra, km, wl, smi)
         del km
-        pipeline_full(results, wl)
+        pipeline_full(results, wl, smi)
     del ra
     with tempfile.TemporaryDirectory() as tmp:
         big_genome(results, Path(tmp) / "big", smi)

@@ -193,10 +193,14 @@ def test_workload_simdata_equals_tests_simdata():
 
 def test_port_sources_import_no_jax():
     """No file of the port, and not chip_smoke.py, imports jax or any
-    module of the JAX package (aligngraph_tpu), in any form: the port keeps
-    its own copies of the host modules it shares with it."""
+    module of the JAX package (aligngraph_tpu) or the JAX system's
+    bench.py and bench_pipeline.py, in any form: the port keeps its own
+    copies of the host modules it shares with it."""
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     pkg = re.compile(r"^\s*(import|from)\s+aligngraph_tpu(\s|\.|$)", re.M)
+    # nor the JAX system's benchmark scripts at the repo's root
+    scripts = re.compile(r"^\s*(import|from)\s+(bench|bench_pipeline)"
+                         r"(\s|\.|$)", re.M)
     files = sorted((REPO / "aligngraph_tpu_torch").rglob("*.py"))
     assert {"contig_aligner.py", "driver.py", "misassembly.py",
             "refinement.py", "evaluate.py", "coverage.py",
@@ -205,11 +209,13 @@ def test_port_sources_import_no_jax():
             "contig_layer.py", "kmer_layer.py", "traverse.py",
             "checkpoint.py", "textout.py", "hostmem.py",
             "log.py", "mesh.py", "halo.py", "kmer_shard.py",
-            "dryrun.py"} <= {f.name for f in files}
+            "dryrun.py", "bench.py", "bench_pipeline.py",
+            "ecoli_scale.py"} <= {f.name for f in files}
     for f in files + [REPO / "chip_smoke.py"]:
         text = f.read_text()
         assert not pat.search(text), f
         assert not pkg.search(text), f
+        assert not scripts.search(text), f
         # the multi-name form too: `import os, aligngraph_tpu.config`
         assert not re.search(r"^\s*import\s.*,\s*aligngraph_tpu(\s|\.|,|$)",
                              text, re.M), f
