@@ -8,18 +8,24 @@ Runs the read-aligner benchmark workload (workload.make_workload,
 Config(distance_low=100, distance_high=900)) after two warm-up aligns:
 
   1. layers: `reps` aligns with each layer's function wrapped in a host
-     clock.  Host layers (reverse complement, C13 mask, record extraction
-     and its pos_map reconstruction) are timed as they run; device layers
-     (the whole _align_core and, inside it, seed lookup, candidate
-     selection, the DP fast path, segment extraction) synchronise the
-     device before and after, so each holds its own device work.
+     clock.  Host layers (the wait for a batch's buffer, the unpack and
+     expansion of each layout with its overflow-segment fills, and the
+     overflow branch's full-layout extraction and pos_map
+     reconstruction) are timed as they run; device layers (the reverse
+     complement, the whole _align_core and, inside it, seed lookup,
+     candidate selection, the DP fast path, segment extraction, then the
+     C13 filter and packing) synchronise the device before and after, so
+     each holds its own device work.  A layer that did not run reads 0
+     (the per-slot layers on this workload's dense batches, the overflow
+     branch when no batch overflows).
   2. walls: `reps` aligns with no wrapper.
   3. on CUDA, one align under torch.profiler: device busy time (the union
      of device op intervals), idle share = 1 - busy / wall, peak device
      memory, and the ops by device time (DIR/profile_device.txt).
 
 Prints one line per run and, last, one JSON object of every number (also
-written to DIR/profile_align.json when --out is given).
+written to DIR/profile_align.json when --out is given), with the last
+align's batches by layout and bytes read by the host (ReadAligner.transfer).
 """
 
 from __future__ import annotations
@@ -38,13 +44,19 @@ from aligngraph_tpu_torch.workload import make_workload
 
 # (name in read_aligner, label, synchronise the device around it)
 LAYERS = (
-    ("revcomp_padded_np", "revcomp_host", False),
+    ("revcomp_padded", "revcomp_device", True),
     ("_align_core", "align_core_device", True),
     ("lookup_seeds_bucketed", "seed_lookup", True),
     ("select_candidates", "select_candidates", True),
     ("banded_sw_posmap_auto", "dp_fast_path", True),
     ("_extract_segments", "extract_segments", True),
-    ("_c13_mask_np", "c13_host", False),
+    ("compact", "c13_pack_device", True),
+    ("_wait", "copy_wait_host", False),
+    ("unpack_dense", "unpack_dense_host", False),
+    ("_expand_dense", "expand_dense_host", False),
+    ("unpack_records", "unpack_per_slot_host", False),
+    ("_expand_packed", "expand_per_slot_host", False),
+    ("_fill_overflow_segments", "overflow_segment_fills_host", False),
     ("_expand_full", "expand_full_host", False),
     ("reconstruct_pos_map", "reconstruct_pos_map_host", False),
 )
@@ -153,7 +165,7 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(device)
     for _ in range(args.reps):
-        totals = {}
+        totals = {label: 0.0 for _, label, _ in LAYERS}
         with timed_layers(device, totals):
             _, wall = timed_align(aligner, reads, device)
         report["layers"].append(totals)
@@ -162,7 +174,9 @@ def main(argv=None) -> dict:
               {k: round(v, 4) for k, v in totals.items()}, flush=True)
     for _ in range(args.reps):
         report["walls_s"].append(timed_align(aligner, reads, device)[1])
-    print("walls", [round(w, 4) for w in report["walls_s"]], flush=True)
+    report["transfer"] = dict(aligner.transfer)
+    print("walls", [round(w, 4) for w in report["walls_s"]], "transfer",
+          report["transfer"], flush=True)
     if device.type == "cuda":
         report["profile"] = device_profile(aligner, reads, device, args.out)
         print("profile", report["profile"], flush=True)

@@ -17,6 +17,9 @@ generators and order, seed 11), for the big-genome run
 
 write_reads_fasta: a workload's reads as the CLI's two FASTA files.
 
+make_tandem_workload: tandem copies of one unit between random flanks,
+with read blocks from each region (the read aligner's buffer overflow).
+
 The same arguments give the same arrays as the benchmark scripts.
 """
 
@@ -151,6 +154,31 @@ def make_pipeline_workload(genome_len=4_600_000, depth=25.0, read_len=100,
 
 # pairs write_reads_fasta formats at a time
 FASTA_BLOCK_PAIRS = 1 << 16
+
+
+def make_tandem_workload(pairs=(800, 224, 1024), unit_len=2000, copies=4,
+                         flank_len=6000, read_len=100, insert=400, seed=5):
+    """A genome of `copies` tandem copies of one random unit between two
+    random flanks, and PE reads (simulate_pe_reads) in three blocks:
+    pairs[0] from the first flank, pairs[1] from the repeat, pairs[2]
+    from the second flank.  A repeat pair aligns at up to `copies` places
+    (its seeds have `copies` hits, within Config's max_seed_hits 8 and
+    max_candidates 4).  The default blocks in batches of 1,024 pairs put
+    224 repeat pairs among 800 unique ones in the first batch: the read
+    aligner's DP capacity (1.5 candidates a read) then keeps most of their
+    candidates, and the batch holds more extra hits than its dense buffer
+    and more records than its per-slot buffer (distance_high 40,000);
+    the second batch holds unique pairs only.
+    -> (genome int8, data int8 [2n, read_len] mate-interleaved, lens)."""
+    rng = np.random.default_rng(seed)
+    first = rng.integers(0, 4, flank_len).astype(np.int8)
+    repeat = np.tile(rng.integers(0, 4, unit_len).astype(np.int8), copies)
+    second = rng.integers(0, 4, flank_len).astype(np.int8)
+    blocks = [simulate_pe_reads(rng, region, n, read_len, insert)
+              for region, n in zip((first, repeat, second), pairs)]
+    return (np.concatenate([first, repeat, second]),
+            np.concatenate([b[0] for b in blocks]),
+            np.concatenate([b[1] for b in blocks]))
 
 
 def write_reads_fasta(d, data, lens, width=60):

@@ -30,9 +30,16 @@ Phases, one line each, any failure raises (non-zero exit):
      must give the same records, and each kernel's device ms over one
      more align under torch.profiler; every kernel must have launched.
      Each path prints its launches and lanes per kernel and read length
-     L.
-  5. check: align on the first 2,048 pairs on "cuda" and on "cpu" (the
-     plain path); every PairAlignments field must be equal.
+     L.  Prints the last timed align's batches by transfer layout (dense,
+     per-slot, overflowing) and the bytes the host read.
+  5. check: align on "cuda" and on "cpu" (the plain path), every
+     PairAlignments field and the batches by layout equal: the first
+     2,048 pairs in one batch; the first 4,096 in batches of 1,024
+     (dense buffers, each read after its event), and again with
+     distance_high 40,000 (per-slot buffers); the tandem-repeat genome
+     (workload.make_tandem_workload, 2,048 pairs in batches of 1,024) at
+     distance 150-750 and 150-40,000, where a batch must overflow its
+     buffer and be decoded from its full layout.
   6. pipeline small: tests/test_pipeline.py's sim (seed 42, 30 kb, 3,000
      pairs, 10 contigs) through the CLI (aligngraph_tpu_torch.__main__.main)
      on "cuda" and on "cpu", with --misassemblyRemoval and with --part 2
@@ -106,6 +113,7 @@ nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -479,13 +487,41 @@ def require_launched(path: str, launches: dict, by_l: dict,
                              f"path: {launches}")
 
 
+def cuda_equals_cpu(label: str, genome, index, cfg, reads,
+                    batch: int) -> dict:
+    """align on "cuda" and on "cpu" (the plain path), both over the host
+    seed index `index` in batches of `batch` pairs: every FIELDS entry
+    and the batches by transfer layout equal -> that count
+    (ReadAligner.transfer)."""
+    from aligngraph_tpu_torch import ReadAligner
+
+    t0 = time.perf_counter()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        al = ReadAligner.from_index(genome, index, cfg, batch_pairs=batch,
+                                    device=dev)
+        out[dev] = al.align(reads), dict(al.transfer)
+    (got, tr), (cpu, cpu_tr) = out["cuda"], out["cpu"]
+    for f in FIELDS:
+        a, b = getattr(got, f), getattr(cpu, f)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: cuda != cpu on field {f}")
+    if tr != cpu_tr:
+        raise AssertionError(f"{label}: transfer {tr} on cuda, {cpu_tr} "
+                             f"on cpu")
+    phase("check", f"{label}: cuda == cpu on {reads.n_pairs} pairs in "
+          f"batches of {batch}, {got.n} records, every field; batches "
+          f"{tr} ({time.perf_counter() - t0:.1f} s)")
+    return tr
+
+
 def read_aligner_path(results: dict) -> dict:
     """Phases 4-5: the read aligner on the bench.py workload through
     aligngraph_tpu_torch.bench.run (3 timed aligns, which must give the
     same records; the kernels' counts are set to 0 just before them and
     read just after, inside run).  Returns the aligner, the reads, the
     records of the first timed align and the walls."""
-    from aligngraph_tpu_torch import ReadAligner, Reads
+    from aligngraph_tpu_torch import Reads
     from aligngraph_tpu_torch import bench
 
     n_pairs, batch = 100_000, 32_768
@@ -513,20 +549,41 @@ def read_aligner_path(results: dict) -> dict:
     if res.pos_map.shape != (res.n, 2, L_MAIN):
         raise AssertionError(f"pos_map shape {res.pos_map.shape}")
 
-    # the CUDA path against the plain CPU path on 2,048 pairs
-    n_chk = 2048
-    data, lens = ctx["reads"].data, ctx["reads"].lengths
-    sub = Reads(n_chk, data.shape[1], data[:2 * n_chk], lens[:n_chk])
-    t0 = time.perf_counter()
-    got = ctx["aligner"].align(sub)
-    cpu = ReadAligner.build(ctx["ref"], ctx["cfg"], batch_pairs=batch,
-                            device="cpu").align(sub)
-    for f in FIELDS:
-        a, b = getattr(got, f), getattr(cpu, f)
-        if a.dtype != b.dtype or not np.array_equal(a, b):
-            raise AssertionError(f"cuda != cpu on field {f}")
-    phase("check", f"cuda == cpu on {n_chk} pairs, {got.n} records, every "
-          f"field ({time.perf_counter() - t0:.1f} s)")
+    tr = rep["transfer"]
+    phase("reads", f"transfer of one align: {tr['dense']} dense, "
+          f"{tr['per_slot']} per-slot, {tr['overflow']} overflowing "
+          f"batches; {tr['host_bytes']} B read by the host")
+    if tr["dense"] + tr["per_slot"] + tr["overflow"] != -(-n_pairs // batch):
+        raise AssertionError(f"batches by layout {tr}")
+
+    # the CUDA path against the plain CPU path: one batch, then several
+    # (each batch's buffer read from pinned memory after its event), in
+    # each transfer layout, and batches that overflow their buffer
+    from aligngraph_tpu_torch.ops.seeding import build_index
+    from aligngraph_tpu_torch.workload import make_tandem_workload
+
+    ref, cfg, data, lens = (ctx["ref"], ctx["cfg"], ctx["reads"].data,
+                            ctx["reads"].lengths)
+    index = build_index(ref, cfg.seed_len)
+    wide = dataclasses.replace(cfg, distance_high=40_000)
+    for label, n, b, c, layout in (
+            ("dense, one batch", 2048, batch, cfg, "dense"),
+            ("dense", 4096, 1024, cfg, "dense"),
+            ("per-slot (distance_high 40,000)", 4096, 1024, wide,
+             "per_slot")):
+        sub = Reads(n, data.shape[1], data[:2 * n], lens[:n])
+        got = cuda_equals_cpu(label, ref, index, c, sub, b)
+        if got[layout] != -(-n // b):
+            raise AssertionError(f"{label}: batches by layout {got}")
+    tg, tdata, tlens = make_tandem_workload()
+    tindex = build_index(tg, cfg.seed_len)
+    treads = Reads(len(tlens), tdata.shape[1], tdata, tlens)
+    for label, dhigh in (("tandem repeat, dense", 750),
+                         ("tandem repeat, per-slot", 40_000)):
+        c = dataclasses.replace(cfg, distance_low=150, distance_high=dhigh)
+        got = cuda_equals_cpu(label, tg, tindex, c, treads, 1024)
+        if got["overflow"] < 1:
+            raise AssertionError(f"{label}: no batch overflowed: {got}")
     return dict(aligner=ctx["aligner"], reads=ctx["reads"], records=res,
                 walls=walls)
 
@@ -973,6 +1030,9 @@ def pipeline_full(results: dict, wl: dict, smi: str) -> None:
           + ", ".join(f"{k} {st[k]:.2f} s" for k in
                       ("alignment", "contig_layer", "kmer_build",
                        "traverse", "refinement"))
+          + "; alignment threads " + ", ".join(
+              f"{k} {v:.2f} s"
+              for k, v in res.stats["alignment_threads"].items())
           + f"; read records {res.stats['read_alignments']}, contig "
           f"placements {res.stats['contig_placements']}; native traversal "
           f"{res.stats['native_traversal']}; launches {launches}; lanes "

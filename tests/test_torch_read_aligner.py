@@ -228,8 +228,17 @@ def test_profile_align_reports_every_layer(tmp_path):
                               "--genome-len", "20000", "--batch-pairs", "64",
                               "--reps", "1", "--out", str(tmp_path)])
     labels = {label for _, label, _ in profile_align.LAYERS}
-    assert set(rep["layers"][0]) == labels
-    assert all(v > 0 for v in rep["layers"][0].values())
+    layers = rep["layers"][0]
+    assert set(layers) == labels
+    # two dense batches, none overflows: the per-slot layers and the
+    # overflow branch read 0, every other layer but the fills (reads with
+    # no indel may have no M-block past the first) ran
+    assert rep["transfer"]["dense"] == 2 and rep["transfer"]["host_bytes"]
+    idle = {"unpack_per_slot_host", "expand_per_slot_host",
+            "expand_full_host", "reconstruct_pos_map_host"}
+    assert all(layers[k] == 0 for k in idle)
+    assert all(v > 0 for k, v in layers.items()
+               if k not in idle | {"overflow_segment_fills_host"})
     assert len(rep["walls_s"]) == 1 and rep["walls_s"][0] > 0
     assert (tmp_path / "profile_align.json").exists()
     # the wrappers are gone again
