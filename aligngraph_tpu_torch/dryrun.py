@@ -13,8 +13,13 @@ shapes, asserting what the JAX dry run asserts:
   - the position-sharded k-mer build equals the host oracle
     (build_kmer_layer) on km_cnt, km_cov, km_votes, km_s, ed_cnt, ed_pos
     and ed_item
-and prints one line.  JAX's entry() (a jittable single-chip step) has no
-counterpart: the port runs eagerly.
+and prints one line.
+
+entry() -> (fn, args) is the counterpart of __graft_entry__.entry(): the
+single-card align step (the reverse complement on the device, then the
+read aligner's _align_core, as the JAX package's _align_pairs_device) and
+its arguments on __graft_entry__'s tiny shapes, on the card by default.
+The port runs eagerly, so fn(*args) is the step; nothing is traced.
 
 The shard_* functions are the per-rank pieces: each takes the whole input
 on every rank, runs its shard of one multi-device path and returns the
@@ -26,6 +31,7 @@ package's sharded functions).
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 from typing import List, Tuple
 
@@ -33,7 +39,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from aligngraph_tpu_torch.align.read_aligner import ReadAligner
+from aligngraph_tpu_torch.align.read_aligner import (
+    MAX_PAIR_HITS, ReadAligner, _align_core, revcomp_padded,
+    score_min_table)
 from aligngraph_tpu_torch.config import THRESHOLD, Config
 from aligngraph_tpu_torch.graph.kmer_layer import build_kmer_layer
 from aligngraph_tpu_torch.graph.model import GraphTensors
@@ -130,6 +138,40 @@ def _tiny_problem(n_pairs=32, L=64, glen=4096, seed=0):
         seqs[2 * i] = genome[p:p + L]
         seqs[2 * i + 1] = comp[genome[p + 3 * L - L:p + 3 * L]][::-1]
     return genome, seqs, plens
+
+
+def align_step(genome_p, index, seqs, plens, smin, *, cfg: Config,
+               dlow: int, dhigh: int) -> dict:
+    """One batch of pairs (seqs [2P, L] int8 mate-interleaved, plens [P])
+    through the single-card align step: revcomp_padded, then _align_core
+    with cfg's seeding, band and candidates and the top MAX_PAIR_HITS pairs
+    within [dlow, dhigh] -> the full [P, K] layout (a dict of tensors)."""
+    rc = revcomp_padded(seqs, plens.repeat_interleave(2))
+    return _align_core(genome_p, index, seqs, rc, plens, smin,
+                       seed_len=cfg.seed_len, stride=cfg.seed_stride,
+                       pad=cfg.band_pad, C=cfg.max_candidates,
+                       K=MAX_PAIR_HITS, dlow=dlow, dhigh=dhigh,
+                       mh=cfg.max_seed_hits)
+
+
+def entry(device="cuda"):
+    """-> (fn, args): fn(*args) is align_step on __graft_entry__.entry()'s
+    problem (_tiny_problem: 32 pairs of 64 bases on a 4,096-base genome;
+    Config(), distance 0-99999), its genome and seed index placed on
+    `device` as ReadAligner places them.  There is no fallback: "cuda"
+    with no CUDA device raises."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("entry() places the step on a CUDA device and "
+                           "none is available")
+    cfg = Config()
+    genome, seqs, plens = _tiny_problem()
+    al = ReadAligner.build(genome, cfg, device=device)
+    dev = al.genome_p.device
+    fn = functools.partial(align_step, cfg=cfg, dlow=0, dhigh=99999)
+    args = (al.genome_p, al.index, torch.from_numpy(seqs).to(dev),
+            torch.from_numpy(plens).to(dev),
+            torch.from_numpy(score_min_table(seqs.shape[1])).to(dev))
+    return fn, args
 
 
 def _check(ok: bool, msg: str) -> None:

@@ -197,6 +197,21 @@ def _hit_mask(valid, count, max_hits: int):
             & (j < count[..., None]))
 
 
+def lookup_seeds(sorted_kmers, sorted_posflip, packed, valid,
+                 max_hits: int):
+    """Full-depth searchsorted lookup of canonical query packs [R, S] ->
+    (posflip [R, S, max_hits] int32, ok [R, S, max_hits] bool), as
+    lookup_seeds_bucketed gives them (seeds with more than max_hits
+    occurrences dropped entirely), with no bucket table: each seed's run
+    is bounded by two binary searches over the whole index."""
+    lo = torch.searchsorted(sorted_kmers, packed, side="left",
+                            out_int32=True)
+    hi = torch.searchsorted(sorted_kmers, packed, side="right",
+                            out_int32=True)
+    ok = _hit_mask(valid, hi - lo, max_hits)
+    return slice_gather(sorted_posflip, lo, max_hits), ok
+
+
 def lookup_seeds_bucketed(sorted_kmers, sorted_posflip, bucket_lo, packed,
                           valid, max_hits: int, steps: int,
                           suffix_bits: int):

@@ -116,21 +116,34 @@ def _concat_contig_ali(parts: List[ContigAlignments]
     return ContigAlignments(**kw)
 
 
+def _part_stats(stats: Dict, p: int) -> Dict:
+    """stats["parts"][p]: part p's own figures (seconds, counts), which
+    the stages add as they run it."""
+    return stats.setdefault("parts", {}).setdefault(p, {})
+
+
 def _align_contigs_per_part(genome: Genome, contigs: Contigs,
-                            cfg: Config, device) -> ContigAlignments:
+                            cfg: Config, device, stats: Dict
+                            ) -> ContigAlignments:
     """Per-part contig alignment — the reference's `task1` always aligns
     tmp/_contigs.fa against each tmp/_genome.<i>.fa separately
     (AlignGraph.cpp:3615-3656), so a contig straddling a part cut is
     placed in whichever part(s) pass the C12 coverage filter on the
     part-local alignment.  Coordinates are lifted back to the global
-    genome axis afterwards."""
+    genome axis afterwards.  Each part's seconds (its aligner's index
+    build, then its align) and placements go to _part_stats."""
     parts = []
     for p in range(genome.n_parts):
         pseq = np.asarray(genome.part_seq(p), np.int8)
         if len(pseq) < cfg.seed_len:
             continue
+        t = time.time()
         ca = ContigAligner(pseq, cfg, device=device)
+        tb = time.time()
         r = ca.align(contigs)
+        _part_stats(stats, p).update(contig_index_s=tb - t,
+                                     contigs_s=time.time() - tb,
+                                     contig_placements=r.n)
         off = np.int32(genome.part_gstart[p])
         r.target_start += off
         r.target_end += off
@@ -145,7 +158,9 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
     """Stage (1): the reads' and the contigs' alignments.  The seed index
     and the aligners live in this function only, so the host and the
     device memory they hold is freed when it returns; their host bytes go
-    to stats["seed_index_bytes"]."""
+    to stats["seed_index_bytes"].  Under --iterativeMap each part's
+    seconds and counts go to _part_stats instead, and the bytes of the
+    per-part records joined at the end to stats["part_records_bytes"]."""
     if cfg.iterative_map and genome.n_parts > 1:
         # --iterativeMap: per-part read alignment (reference `task0`
         # per-chromosome branch, AlignGraph.cpp:3581-3613) — bounds
@@ -155,14 +170,20 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
             pseq = np.asarray(genome.part_seq(p), np.int8)
             if len(pseq) < cfg.seed_len:
                 continue
+            t = time.time()
             ra = ReadAligner.build(pseq, cfg, device=device)
+            tb = time.time()
             r = ra.align(reads)
+            _part_stats(stats, p).update(read_index_s=tb - t,
+                                         reads_s=time.time() - tb,
+                                         read_records=r.n)
             off = int(genome.part_gstart[p])
             r.target_start += np.where(r.target_start >= 0, off, 0)
             r.target_end += np.where(r.target_end >= 0, off, 0)
             r.pos_map += np.where(r.pos_map >= 0, off, 0)
             parts.append(r)
         if parts:
+            stats["part_records_bytes"] = heap.host_bytes(parts)
             rali = PairAlignments(**{
                 f.name: np.concatenate([getattr(r, f.name) for r in parts])
                 for f in dataclasses.fields(PairAlignments)})
@@ -171,7 +192,8 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
             # anywhere (degenerate input; previously crashed on
             # np.concatenate of an empty list)
             rali = PairAlignments.empty(max(reads.max_len, 1))
-        return rali, _align_contigs_per_part(genome, contigs, cfg, device)
+        return rali, _align_contigs_per_part(genome, contigs, cfg, device,
+                                             stats)
 
     # the reference overlaps read-align and contig-align with a 2-pthread
     # fork (`parallelMap`, AlignGraph.cpp:3720-3735); ours overlaps them
@@ -192,7 +214,7 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
         align_c = lambda: c_aligner.align(contigs)  # noqa: E731
     else:
         align_c = lambda: _align_contigs_per_part(  # noqa: E731
-            genome, contigs, cfg, device)
+            genome, contigs, cfg, device, stats)
 
     def timed(name, fn):
         t = time.time()
@@ -210,10 +232,12 @@ def _graph_part(cfg: Config, p: int, lo: int, hi: int, genome: Genome,
                 contigs: Contigs, reads: Reads, rali: PairAlignments,
                 part_rows: np.ndarray,
                 cali: ContigAlignments, kstats: KmerBuildStats,
-                stage_s: Dict, mem: "_StageMemory", device):
+                stage_s: Dict, part: Dict, mem: "_StageMemory", device):
     """Stage (3) for part p: the graph (contig layer, then the k-mer layer
     from the records rali[part_rows]), extension and scaffolding, and the
-    part's stage files.  Returns (scaffolds, initial contigs).  The graph,
+    part's stage files.  Returns (scaffolds, initial contigs).  The
+    seconds of each step add up in stage_s and go, with the part's record
+    count, to its own dict `part`.  The graph,
     the part's placements and what the traversal leaves live in this
     function only, so they are freed before the next part's graph is
     made."""
@@ -226,6 +250,7 @@ def _graph_part(cfg: Config, p: int, lo: int, hi: int, genome: Genome,
     outp = build_contig_layer(g, contigs, part_cali, part_offset=lo)
     initials = initial_contigs(contigs, outp)
     stage_s["contig_layer"] += time.time() - tst
+    part["contig_layer_s"] = time.time() - tst
     live = dict(reads=reads, **_record_bytes(rali), cali=cali, graph=g)
     mem.end(f"contig_layer.{p}", **live)
     log.info("  contig layer: %.1fs (%d placements)",
@@ -248,6 +273,7 @@ def _graph_part(cfg: Config, p: int, lo: int, hi: int, genome: Genome,
                          cfg.k_mer, cfg.insert_variation, part_offset=lo,
                          stats=kstats)
     stage_s["kmer_build"] += time.time() - tst
+    part.update(kmer_build_s=time.time() - tst, kmer_records=len(part_rows))
     mem.end(f"kmer_build.{p}", **live, part_rows=part_rows, phase0=phase0)
     log.info("  kmer build: %.1fs (%d records)",
              time.time() - tst, len(part_rows))
@@ -258,6 +284,7 @@ def _graph_part(cfg: Config, p: int, lo: int, hi: int, genome: Genome,
     scaffolds, _pre = extend_and_scaffold(g, cfg.coverage, cfg.k_mer,
                                           pre_snapshot=pre_snap)
     stage_s["traverse"] += time.time() - tst
+    part["traverse_s"] = time.time() - tst
     mem.end(f"traverse.{p}", **live)
     log.info("  traverse+scaffold: %.1fs", time.time() - tst)
     _write_stage_files(cfg.work_dir, p, initials, pre_snap, scaffolds)
@@ -432,7 +459,10 @@ def run_pipeline(cfg: Config,
     # the parts' graphs are made
     _trim(stats)
     align_seconds = time.time() - ta
-    mem.end("alignment", reads=reads, **_record_bytes(rali), cali=cali)
+    # under --iterativeMap the parts' records and their concatenation were
+    # both alive for a moment (the stage's peak RSS)
+    mem.end("alignment", reads=reads, **_record_bytes(rali), cali=cali,
+            rali_parts=stats.get("part_records_bytes"))
     stats["read_alignments"] = rali.n
     stats["contig_placements"] = cali.n
 
@@ -471,7 +501,7 @@ def run_pipeline(cfg: Config,
         del ts
         scaffolds, initials = _graph_part(
             cfg, p, lo, hi, genome, contigs, reads, rali, part_rows, cali,
-            kstats, stage_s, mem, device)
+            kstats, stage_s, _part_stats(stats, p), mem, device)
         per_part_scaffolds.append(scaffolds)
         per_part_initials.append(initials)
         # the part's graph and its k-mer build's temporaries are gone

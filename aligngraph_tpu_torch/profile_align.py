@@ -103,9 +103,11 @@ def timed_align(aligner, reads, device):
     return res, time.perf_counter() - t0
 
 
-def device_profile(aligner, reads, device, out_dir):
-    """One align under torch.profiler -> dict of the profiled wall, device
-    busy seconds, idle share and peak device memory."""
+def device_profile(aligner, reads, device, out_dir,
+                   table_name="profile_device.txt"):
+    """One aligner.align(reads) under torch.profiler -> dict of the
+    profiled wall, device busy seconds, idle share and peak device memory
+    (the ops by device time go to out_dir/table_name)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.reset_peak_memory_stats(device)
@@ -128,7 +130,7 @@ def device_profile(aligner, reads, device, out_dir):
     if out_dir:
         table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=40)
-        with open(os.path.join(out_dir, "profile_device.txt"), "w") as f:
+        with open(os.path.join(out_dir, table_name), "w") as f:
             f.write(table)
     return dict(profiled_wall_s=wall, device_busy_s=busy_us / 1e6,
                 idle_share=1 - busy_us / 1e6 / wall,

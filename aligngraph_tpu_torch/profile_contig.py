@@ -1,0 +1,258 @@
+"""Where the time of one ContigAligner.align goes, layer by layer: the
+counterpart of scripts/profile_contig_align.py.
+
+    python3 -m aligngraph_tpu_torch.profile_contig [--mb 1.0]
+        [--device cuda] [--reps 3] [--out DIR]
+
+The workload is the JAX script's: rng = np.random.default_rng(5), a
+target of int(mb * 1e6) random bases, reference = mutate_fast(rng,
+target), draft contigs = cut_contigs(rng, target) (one chunk each), and
+Config().  The aligner is built on the reference (the index build is
+timed on its own), aligns the first WARM_CONTIGS contigs once (on CUDA
+that loads the kernels), then:
+
+  1. layers: `reps` aligns, each layer timed on the host clock, the
+     device synchronised around the layers that run on it:
+       seed          ContigAligner._seed_hits (the instance's, wrapped)
+       chain         contig_aligner._cluster_and_chain (the module's,
+                     wrapped; align looks it up at call time)
+       tile_jobs     the tile-job assembly inside align: align's wall
+                     less every other layer
+       dp            _run_tile_jobs, replaced on the instance by
+                     run_tile_jobs_timed, a copy of its loop with a clock
+                     between its four parts (held to the module's
+                     pos_map bytes by tests/test_torch_profile_contig.py):
+         windows_host     the batch's tiles, lengths, g0 and genome
+                          windows built on the host
+         dp_device        their upload and banded_sw_posmap_auto, the
+                          device synchronised before and after
+         copy_wait        pm_d.cpu(): the position maps to the host
+         copy_back_host   the per-job copy into each placement's pos_map
+       finalize      ContigAligner._finalize (the instance's, wrapped)
+  2. walls: `reps` aligns with no wrapper; the kernels' launches and
+     lanes by kernel and L (banded_sw_cuda.launches_by_length) over the
+     first.
+  3. on CUDA, one align under torch.profiler
+     (profile_align.device_profile): device busy time, idle share and
+     peak device memory; the ops by device time to
+     DIR/profile_contig_device.txt.
+
+Prints the JAX script's two lines (genome=... contigs=... placements=...
+backend=..., then index_build=... align_wall=... seed=... chain=... dp=...
+finalize=... other=..., from the first layer run; backend is the torch
+device), a line per run, and last one JSON object of every number (also
+DIR/profile_contig.json with --out).  There is no fallback: with
+--device cuda and no CUDA device it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from aligngraph_tpu_torch.align import contig_aligner as cal
+from aligngraph_tpu_torch.config import Config
+from aligngraph_tpu_torch.io.formalize import Contigs
+from aligngraph_tpu_torch.ops import banded_sw_cuda
+from aligngraph_tpu_torch.profile_align import device_profile
+from aligngraph_tpu_torch.workload import cut_contigs, mutate_fast
+
+# contigs of the warm-up align
+WARM_CONTIGS = 16
+# the layers of one align, in the order they are printed
+LAYERS = ("seed", "chain", "tile_jobs", "dp", "windows_host", "dp_device",
+          "copy_wait", "copy_back_host", "finalize")
+
+
+def make_contigs(seqs) -> Contigs:
+    """The JAX script's Contigs: contig i named c{i}, one chunk each."""
+    return Contigs(
+        ids=[f"c{i}" for i in range(len(seqs))],
+        seqs=[np.asarray(c, np.int8) for c in seqs],
+        chaff_ids=[], chaff_seqs=[],
+        chunk_real=np.arange(len(seqs), dtype=np.int32),
+        chunk_start=np.zeros(len(seqs), np.int64),
+        chunk_len=np.array([len(c) for c in seqs], np.int64))
+
+
+def make_workload(mb: float):
+    """-> (reference int8, draft contig sequences), the JAX script's."""
+    rng = np.random.default_rng(5)
+    target = rng.integers(0, 4, int(mb * 1e6)).astype(np.int8)
+    reference = mutate_fast(rng, target)
+    return reference, cut_contigs(rng, target)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_tile_jobs_timed(ca, jobs, placements, totals: dict) -> None:
+    """ContigAligner._run_tile_jobs(jobs, placements) on ca, line for line,
+    with the seconds of each of its four parts added to totals
+    (windows_host, dp_device, copy_wait, copy_back_host)."""
+    G = len(ca.genome_np)
+    W = 2 * cal.TILE_PAD
+    bs = ca.dp_batch
+    dev = ca.device
+    for s in range(0, len(jobs), bs):
+        t0 = time.perf_counter()
+        blk = jobs[s:s + bs]
+        tiles = np.full((bs, cal.TILE), 4, np.int8)
+        tlens = np.zeros(bs, np.int32)
+        g0s = np.zeros(bs, np.int32)
+        for k, (pid, ts, tile, plen, g0) in enumerate(blk):
+            tiles[k] = tile
+            tlens[k] = plen
+            g0s[k] = np.clip(g0, -(2**30), 2**30)
+        x = g0s[:, None] - cal.TILE_PAD + np.arange(cal.TILE + W)[None, :]
+        ok = (x >= 0) & (x < G)
+        windows = np.where(ok, ca.genome_np[np.clip(x, 0, G - 1)],
+                           np.int8(4))
+        _sync(dev)
+        t1 = time.perf_counter()
+        _, pm_d = cal.banded_sw_posmap_auto(
+            *(torch.from_numpy(a).to(dev)
+              for a in (tiles, tlens, windows, g0s)), pad=cal.TILE_PAD)
+        _sync(dev)
+        t2 = time.perf_counter()
+        pm = pm_d.cpu().numpy()
+        t3 = time.perf_counter()
+        for k, (pid, ts, tile, plen, g0) in enumerate(blk):
+            seg = pm[k, :plen]
+            dst = placements[pid]["pos_map"][ts:ts + plen]
+            np.copyto(dst, seg, where=seg >= 0)
+        t4 = time.perf_counter()
+        for name, a, b in (("windows_host", t0, t1), ("dp_device", t1, t2),
+                           ("copy_wait", t2, t3),
+                           ("copy_back_host", t3, t4)):
+            totals[name] += b - a
+
+
+def timed_align(ca, contigs, device):
+    _sync(device)
+    t0 = time.perf_counter()
+    res = ca.align(contigs)
+    _sync(device)
+    return res, time.perf_counter() - t0
+
+
+def layer_align(ca, contigs, device) -> tuple:
+    """One align with every layer timed -> (ContigAlignments, wall,
+    {layer: seconds}).  The wrappers are gone again on return."""
+    totals = {name: 0.0 for name in LAYERS}
+
+    def clocked(fn, name, sync):
+        def timed(*args, **kwargs):
+            if sync:
+                _sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                _sync(device)
+            totals[name] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def jobs(j, p):
+        run_tile_jobs_timed(ca, j, p, totals)
+
+    chain = cal._cluster_and_chain
+    cal._cluster_and_chain = clocked(chain, "chain", False)
+    ca._seed_hits = clocked(ca._seed_hits, "seed", False)
+    ca._run_tile_jobs = clocked(jobs, "dp", True)
+    ca._finalize = clocked(ca._finalize, "finalize", False)
+    try:
+        res, wall = timed_align(ca, contigs, device)
+    finally:
+        cal._cluster_and_chain = chain
+        for name in ("_seed_hits", "_run_tile_jobs", "_finalize"):
+            del ca.__dict__[name]
+    totals["tile_jobs"] = wall - sum(totals[k] for k in
+                                     ("seed", "chain", "dp", "finalize"))
+    return res, wall, totals
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mb", type=float, default=1.0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--out", default=None,
+                    help="directory for profile_contig.json and the op "
+                         "table")
+    args = ap.parse_args(argv)
+    if args.reps < 1:
+        ap.error("--reps must be at least 1")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("profile_contig --device cuda needs a CUDA "
+                           "device and none is available")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+
+    t0 = time.perf_counter()
+    reference, seqs = make_workload(args.mb)
+    contigs = make_contigs(seqs)
+    setup_s = time.perf_counter() - t0
+    cfg = Config()
+    t0 = time.perf_counter()
+    ca = cal.ContigAligner(reference, cfg, device=device)
+    index_s = time.perf_counter() - t0
+    timed_align(ca, make_contigs(seqs[:WARM_CONTIGS]), device)
+
+    report = dict(mb=args.mb, device=str(device), contigs=len(seqs),
+                  genome_len=len(reference), setup_s=setup_s,
+                  index_build_s=index_s, layers=[], layer_walls_s=[],
+                  walls_s=[])
+    if device.type == "cuda":
+        report["device_name"] = torch.cuda.get_device_name(device)
+    for rep in range(args.reps):
+        res, wall, totals = layer_align(ca, contigs, device)
+        report["layers"].append(totals)
+        report["layer_walls_s"].append(wall)
+        if rep == 0:
+            report["placements"] = res.n
+            st = totals
+            # the JAX script's two lines: its dp is _run_tile_jobs, its
+            # other the tile-job assembly
+            print(f"genome={args.mb}Mb contigs={len(seqs)} "
+                  f"placements={res.n} backend={device}")
+            print(f"index_build={index_s:.1f}s align_wall={wall:.1f}s "
+                  f"seed={st['seed']:.1f}s chain={st['chain']:.1f}s "
+                  f"dp={st['dp']:.1f}s finalize={st['finalize']:.1f}s "
+                  f"other={st['tile_jobs']:.1f}s", flush=True)
+        print("layers", round(wall, 4),
+              {k: round(v, 4) for k, v in totals.items()}, flush=True)
+    for rep in range(args.reps):
+        banded_sw_cuda.reset_launches()
+        res, wall = timed_align(ca, contigs, device)
+        if rep == 0:
+            report["launches_by_length"] = \
+                banded_sw_cuda.launches_by_length()
+        if res.n != report["placements"]:
+            raise AssertionError(f"align gave {res.n} placements, the "
+                                 f"layer run {report['placements']}")
+        report["walls_s"].append(wall)
+    print("walls", [round(w, 4) for w in report["walls_s"]], "launches",
+          report.get("launches_by_length"), flush=True)
+    if device.type == "cuda":
+        report["profile"] = device_profile(ca, contigs, device, args.out,
+                                           "profile_contig_device.txt")
+        print("profile", report["profile"], flush=True)
+    line = json.dumps(report)
+    if args.out:
+        with open(os.path.join(args.out, "profile_contig.json"), "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,10 @@ target genome, a reference = target + 1% SNPs + small indels, PE 100 bp
 reads from the target at a given depth, and ~3 kb draft contigs of the
 target separated by insert-bridgeable gaps.
 
+make_multichrom_workload: a genome of several chromosomes (YEAST_R64's
+lengths for BASELINE.json config 2), each with its own reads and draft
+contigs; write_multichrom_fasta writes it as the CLI's inputs.
+
 make_bigscale_workload: scripts/bigscale_run.py's workload (the same
 generators and order, seed 11), for the big-genome run
 (aligngraph_tpu_torch/bigscale.py).
@@ -205,6 +209,74 @@ def write_reads_fasta(d, data, lens, width=60):
                 f.write(b"".join(out))
 
 
+# S. cerevisiae S288C's nuclear genome, assembly R64 (GCF_000146045.2):
+# chromosome names and lengths (BASELINE.json config 2), 12,071,326 bp
+YEAST_R64 = (
+    ("chrI", 230_218), ("chrII", 813_184), ("chrIII", 316_620),
+    ("chrIV", 1_531_933), ("chrV", 576_874), ("chrVI", 270_161),
+    ("chrVII", 1_090_940), ("chrVIII", 562_643), ("chrIX", 439_888),
+    ("chrX", 745_751), ("chrXI", 666_816), ("chrXII", 1_078_177),
+    ("chrXIII", 924_431), ("chrXIV", 784_333), ("chrXV", 1_091_291),
+    ("chrXVI", 948_066))
+
+
+def make_multichrom_workload(chrom_lens, depth, seed, read_len=100,
+                             insert=500):
+    """A genome of several chromosomes, each made as make_pipeline_workload
+    makes its one, from one generator in chromosome order: the target,
+    reference = mutate_fast(target), the chromosome's PE reads
+    (simulate_pe_reads, so no pair crosses a chromosome's end) and its
+    draft contigs (cut_contigs).  The pairs are depth * length / (2 *
+    read_len) of all chromosomes, each chromosome taking floor(depth *
+    (its end) / (2 * read_len)) less the same of its start: in proportion
+    to its length, within one pair.
+    -> dict(targets, refs: lists of int8 arrays; data int8 [2n, read_len]
+    mate-interleaved, lens int32 [n], pair_chrom int32 [n]: the reads of
+    every chromosome in turn; contigs: list of int8 arrays, contig_chrom
+    int32)."""
+    rng = np.random.default_rng(seed)
+    ends = np.cumsum(np.asarray(chrom_lens, np.int64))
+    cum = (depth * ends / (2 * read_len)).astype(np.int64)
+    n_pairs = np.diff(np.concatenate([[0], cum]))
+    out = dict(targets=[], refs=[], data=[], lens=[], pair_chrom=[],
+               contigs=[], contig_chrom=[])
+    for c, (ln, n) in enumerate(zip(chrom_lens, n_pairs)):
+        target = rng.integers(0, 4, int(ln)).astype(np.int8)
+        out["targets"].append(target)
+        out["refs"].append(mutate_fast(rng, target))
+        data, lens = simulate_pe_reads(rng, target, int(n), read_len,
+                                       insert)
+        out["data"].append(data)
+        out["lens"].append(lens)
+        out["pair_chrom"].append(np.full(int(n), c, np.int32))
+        contigs = cut_contigs(rng, target)
+        out["contigs"] += contigs
+        out["contig_chrom"].append(np.full(len(contigs), c, np.int32))
+    for key in ("data", "lens", "pair_chrom", "contig_chrom"):
+        out[key] = np.concatenate(out[key])
+    return out
+
+
+def write_multichrom_fasta(d, names, wl) -> None:
+    """make_multichrom_workload's output as the CLI's inputs in d:
+    genome.fa (the references, one record a chromosome), target.fa (the
+    targets, for Eval), contigs.fa (contig j of chromosome c named
+    "{names[c]}.c{j}") and r1.fa / r2.fa (write_reads_fasta)."""
+    from aligngraph_tpu_torch.io.fasta import decode, write_fasta
+
+    write_fasta(os.path.join(d, "genome.fa"), list(names),
+                [decode(s) for s in wl["refs"]])
+    write_fasta(os.path.join(d, "target.fa"), list(names),
+                [decode(s) for s in wl["targets"]])
+    ids, seen = [], {}
+    for c in wl["contig_chrom"]:
+        j = seen[c] = seen.get(c, -1) + 1
+        ids.append(f"{names[c]}.c{j}")
+    write_fasta(os.path.join(d, "contigs.fa"), ids,
+                [decode(s) for s in wl["contigs"]])
+    write_reads_fasta(d, wl["data"], wl["lens"])
+
+
 def make_bigscale_workload(genome_len, depth, seed=11, read_len=100):
     """scripts/bigscale_run.py's workload -> (target, ref, data, lens,
     contig_seqs): the same generators as make_pipeline_workload, drawn in
@@ -245,6 +317,16 @@ def tile_lanes(rng, B, L=512, pad=16, G=1_000_000, max_indel=6):
     windows = np.where((x >= 0) & (x < G), genome[np.clip(x, 0, G - 1)],
                        np.int8(4)).astype(np.int8)
     return tiles, tlens, windows, g0
+
+
+# where the multi-chromosome cases cut the small sim's genomes into
+# chromosomes of unequal length, one shorter than 5 kb
+SIM_CHROM_CUTS = (4_000, 16_000)
+
+
+def split_chromosomes(seq, cuts=SIM_CHROM_CUTS):
+    """seq cut at `cuts` -> len(cuts) + 1 chromosomes."""
+    return np.split(np.asarray(seq), list(cuts))
 
 
 # --- the small simulator of the tests (a copy of tests/simdata.py's

@@ -43,11 +43,13 @@ Phases, one line each, any failure raises (non-zero exit):
   6. pipeline small: tests/test_pipeline.py's sim (seed 42, 30 kb, 3,000
      pairs, 10 contigs) through the CLI (aligngraph_tpu_torch.__main__.main)
      on "cuda" and on "cpu", with --misassemblyRemoval and with --part 2
-     --iterativeMap: the extended, remaining and corrected FASTA and every
-     tmp/ stage file byte-equal, every kernel launched on "cuda" in the
-     first; the CLI's k-mer build on the device on "cuda" and on the
-     host on "cpu", so the bytes hold the two builds equal; Eval of the
-     extended contigs on both devices equal.
+     --iterativeMap, and the same sim at 1,500 pairs with its genome cut
+     into three chromosomes (4,000, 12,000 and ~14,000 bases) with
+     --iterativeMap (three parts): the extended, remaining and corrected
+     FASTA and every tmp/ stage file byte-equal, every kernel launched on
+     "cuda" in the first and in the third; the CLI's k-mer build on the
+     device on "cuda" and on the host on "cpu", so the bytes hold the two
+     builds equal; Eval of the extended contigs on both devices equal.
   kmer: the device k-mer layer build on bench_pipeline.py's workload
      (seed 7, 4.6 Mb, depth 25 = 575,000 pairs of 100 bp, 1,424 draft
      contigs, distance 300-700, one part): both aligners on "cuda" as the
@@ -105,8 +107,25 @@ Phases, one line each, any failure raises (non-zero exit):
      the records as run_pipeline hands them to the build) against the
      host oracle on the part's first 4 chunks of 16,384 accepted records:
      all 13 arrays and the stats equal.
+  chroms: BASELINE.json config 2's layout, S. cerevisiae R64's 16
+     chromosomes (12,071,326 bases, workload.YEAST_R64; the sequences from
+     seed 288, workload.make_multichrom_workload), 20x (1,207,132 pairs of
+     100 bp, insert 500, each chromosome's own), cut_contigs on each
+     chromosome, as FASTA files; the CLI on "cuda" with --iterativeMap at
+     --part 1 (16 parts: each part's reads and contigs aligned on its own
+     index, the k-mer layer built on the device at 16 offsets), then Eval
+     of extended.fa against the 16-record target: stage and formalize
+     walls, each part's seconds and records, peak device and host memory,
+     launches per kernel and L; 16 parts, the device build, every kernel
+     launched at L 100 and L 512, every dropped_* 0, extended > 0, Eval
+     MPMB 0.0, true contigs >= 95% of extended, and the extended contigs,
+     Eval and the k-mer stats equal to the recorded CHROMS_EVAL and
+     CHROMS_KMER_STATS; then chrXII's device k-mer build (a late part, a
+     non-zero offset) against the host oracle on its first 4 chunks of
+     16,384 records: all 13 arrays and the stats equal.
 Then a JSON line of per-kernel results (launches: the main paths',
-run_pipeline then Eval at 4.6 Mb, the CLI at 4.6 Mb, then phase big),
+run_pipeline then Eval at 4.6 Mb, the CLI at 4.6 Mb, then phase big, then
+phase chroms' CLI and Eval),
 nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
 """
 
@@ -619,45 +638,68 @@ def pipeline_files(out: Path) -> dict:
     return files
 
 
-def pipeline_small(results: dict, work: Path) -> None:
-    """Phase 6: the CLI on cuda and on cpu, with --misassemblyRemoval and
-    with --part 2 --iterativeMap."""
-    from aligngraph_tpu_torch import __main__ as cli
+def write_sim(work: Path, n_pairs: int, chromosomes: bool) -> list:
+    """tests/test_pipeline.py's sim (seed 42, 30 kb, 10 contigs) with
+    n_pairs pairs as genome.fa, target.fa, contigs.fa, r1.fa and r2.fa in
+    work, the genome and the target in one record or, with chromosomes,
+    cut into three (workload.split_chromosomes) -> the CLI's input flags,
+    distance 300-700."""
     from aligngraph_tpu_torch import decode, write_fasta
-    from aligngraph_tpu_torch.evaluate.evaluate import evaluate
-    from aligngraph_tpu_torch.workload import make_simdata
+    from aligngraph_tpu_torch.workload import make_simdata, split_chromosomes
 
     target, reference, reads1, reads2, contigs = make_simdata(
-        seed=42, genome_len=30_000, n_pairs=3000, read_len=100, insert=500,
-        n_contigs=10, snp_rate=0.01, err_rate=0.003)
+        seed=42, genome_len=30_000, n_pairs=n_pairs, read_len=100,
+        insert=500, n_contigs=10, snp_rate=0.01, err_rate=0.003)
     work.mkdir()
-    write_fasta(work / "genome.fa", ["refchr"], [decode(reference)])
-    write_fasta(work / "target.fa", ["chr"], [decode(target)])
+    for name, seq, one in (("genome.fa", reference, "refchr"),
+                           ("target.fa", target, "chr")):
+        parts = split_chromosomes(seq) if chromosomes else [seq]
+        ids = ([f"chr{c}" for c in range(len(parts))] if chromosomes
+               else [one])
+        write_fasta(work / name, ids, [decode(c) for c in parts])
     write_fasta(work / "contigs.fa", [f"ctg{i}" for i in range(len(contigs))],
                 [decode(c) for c in contigs])
-    n = len(reads1)
     for mate, seqs in (("r1", reads1), ("r2", reads2)):
-        write_fasta(work / f"{mate}.fa", [f"p{i}" for i in range(n)],
+        write_fasta(work / f"{mate}.fa", [f"p{i}" for i in range(n_pairs)],
                     [decode(r) for r in seqs])
-    base = ["--read1", str(work / "r1.fa"), "--read2", str(work / "r2.fa"),
+    return ["--read1", str(work / "r1.fa"), "--read2", str(work / "r2.fa"),
             "--contig", str(work / "contigs.fa"), "--genome",
             str(work / "genome.fa"), "--distanceLow", "300",
             "--distanceHigh", "700"]
-    # (name, flags, files that must be among the outputs); the first run
-    # is the path whose launches count, the second covers the per-part
-    # aligners
-    runs = [("misassembly", ["--misassemblyRemoval"],
+
+
+def pipeline_small(results: dict, work: Path) -> None:
+    """Phase 6: the CLI on cuda and on cpu, with --misassemblyRemoval and
+    with --part 2 --iterativeMap on the one-record sim, and with
+    --iterativeMap on the three-chromosome sim."""
+    from aligngraph_tpu_torch import __main__ as cli
+    from aligngraph_tpu_torch.evaluate.evaluate import evaluate
+
+    work.mkdir()
+    one = write_sim(work / "one", 3000, chromosomes=False)
+    three = write_sim(work / "three", 1500, chromosomes=True)
+    # (name, inputs, flags, files that must be among the outputs); the
+    # first run is the path whose launches count, the second covers the
+    # per-part aligners, the third one part a chromosome, each part's
+    # reads and contigs aligned on its own, and every kernel must launch
+    # in it too
+    runs = [("misassembly", one, ["--misassemblyRemoval"],
              ("extended.fa", "remaining.fa", "corrected_extended.fa",
               "corrected_remaining.fa", "tmp/_initial_contigs.0.fa",
               "tmp/_pre_extended_contigs.0.fa",
               "tmp/_extended_contigs.0.fa")),
-            ("part2_iterative", ["--part", "2", "--iterativeMap"],
+            ("part2_iterative", one, ["--part", "2", "--iterativeMap"],
              ("extended.fa", "remaining.fa", "tmp/_initial_contigs.1.fa",
               "tmp/_pre_extended_contigs.1.fa",
-              "tmp/_extended_contigs.1.fa"))]
+              "tmp/_extended_contigs.1.fa")),
+            ("chromosomes_iterative", three, ["--iterativeMap"],
+             ("extended.fa", "remaining.fa", "tmp/_initial_contigs.2.fa",
+              "tmp/_pre_extended_contigs.2.fa",
+              "tmp/_extended_contigs.2.fa"))]
     cwd = os.getcwd()
-    for name, flags, want in runs:
+    for name, base, flags, want in runs:
         files, evals = {}, {}
+        target = Path(base[base.index("--genome") + 1]).parent / "target.fa"
         for dev in ("cuda", "cpu"):
             out = work / f"{name}_{dev}"
             out.mkdir()
@@ -683,9 +725,14 @@ def pipeline_small(results: dict, work: Path) -> None:
             if dev == "cuda" and name == "misassembly":
                 require_launched("pipeline_small", launches, by_l,
                                  results)
+            if dev == "cuda" and name == "chromosomes_iterative":
+                require_launched("pipeline_small_chromosomes", launches,
+                                 by_l, results)
+                if kept[0].stats["n_parts"] != 3:
+                    raise AssertionError(f"{name}: {kept[0].stats['n_parts']}"
+                                         f" parts")
             files[dev] = pipeline_files(out)
-            evals[dev] = evaluate(work / "target.fa", out / "extended.fa",
-                                  device=dev)
+            evals[dev] = evaluate(target, out / "extended.fa", device=dev)
             phase("small", f"{name} {dev}: k-mer build {build}, CLI wall "
                   f"{wall:.2f} s, launches "
                   f"{launches}, lanes {lanes}; Eval {evals[dev]}")
@@ -1143,6 +1190,81 @@ BIG_KMER_STATS = {"tuples": 303_645_809, "rows": 607_363_419,
                   "dropped_slots": 0, "dropped_edges": 0}
 
 
+@contextlib.contextmanager
+def kept_kmer_part(wanted):
+    """driver.build_kmer_layer_device wrapped for the block: for the part
+    whose part_offset `wanted` accepts, just before its build, a copy of
+    its graph after the contig layer (g0), its first KMER_CHUNKS chunks of
+    records as the build gets them (recs), the reads and the part's offset
+    (lo) go to the dict the block gets, and the copy's seconds to its
+    copy_s."""
+    import copy
+
+    from aligngraph_tpu_torch.pipeline import driver
+
+    build = driver.build_kmer_layer_device
+    kept = {"copy_s": 0.0}
+
+    def keep(g, recs, reads, *args, part_offset, rows, **kw):
+        if wanted(part_offset):
+            t = time.perf_counter()
+            kept.update(g0=copy.deepcopy(g), lo=part_offset, reads=reads,
+                        recs=driver._subset_pairs(
+                            recs, rows[:KMER_CHUNKS * KMER_CHUNK]))
+            kept["copy_s"] += time.perf_counter() - t
+        return build(g, recs, reads, *args, part_offset=part_offset,
+                     rows=rows, **kw)
+
+    driver.build_kmer_layer_device = keep
+    try:
+        yield kept
+    finally:
+        driver.build_kmer_layer_device = build
+
+
+def part_kmer_vs_oracle(name: str, label: str, kept: dict, cfg) -> None:
+    """The kept part's device k-mer build (kept_kmer_part) against the host
+    oracle on its KMER_CHUNKS chunks of KMER_CHUNK records: all 13 arrays
+    and the stats equal."""
+    import copy
+    import dataclasses
+
+    from aligngraph_tpu_torch import build_kmer_layer
+    from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
+
+    g0, recs, lo, reads = kept["g0"], kept["recs"], kept["lo"], kept["reads"]
+    k, iv = cfg.k_mer, cfg.insert_variation
+    g_host = copy.deepcopy(g0)
+    t0 = time.perf_counter()
+    st_host = build_kmer_layer(g_host, recs, reads, k, iv, part_offset=lo,
+                               chunk_records=KMER_CHUNK)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st_dev = kj.build_kmer_layer_device(g0, recs, reads, k, iv,
+                                        part_offset=lo,
+                                        chunk_records=KMER_CHUNK,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    state = kj.state_bytes(g0.km_cnt.shape[0])
+    bad = [f for f in KM_FIELDS
+           if getattr(g0, f).dtype != getattr(g_host, f).dtype
+           or not np.array_equal(getattr(g0, f), getattr(g_host, f))]
+    if bad or dataclasses.asdict(st_dev) != dataclasses.asdict(st_host) \
+            or recs.n != KMER_CHUNKS * KMER_CHUNK:
+        raise AssertionError(f"{name}: {label}'s device k-mer build != "
+                             f"host oracle: fields {bad}, stats {st_dev} "
+                             f"vs {st_host}, {recs.n} records")
+    phase(name, f"{label} (offset {lo}, {g0.km_cnt.shape[0]} positions): "
+          f"first {recs.n} accepted records, host oracle {host_s:.3f} s, "
+          f"device {dev_s:.3f} s; all {len(KM_FIELDS)} fields and the stats "
+          f"equal: {dataclasses.asdict(st_dev)}; peak device memory "
+          f"{peak / 2**30:.2f} GiB (state {state / 2**30:.2f} GiB)")
+
+
 def big_genome(results: dict, work: Path, smi: str) -> None:
     """Phase big: bigscale.run on "cuda" (the launches of the big-genome
     path), its invariants, the read aligner on cuda against cpu on
@@ -1151,41 +1273,28 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
     chunks of accepted records (graph and records as run_pipeline gave
     them to its build: the driver's build_index and
     build_kmer_layer_device are wrapped for the run to keep them)."""
-    import copy
-    import dataclasses
-
-    from aligngraph_tpu_torch import ReadAligner, Reads, build_kmer_layer
+    from aligngraph_tpu_torch import ReadAligner, Reads
     from aligngraph_tpu_torch import bigscale
-    from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
     from aligngraph_tpu_torch.pipeline import driver
 
-    n_rec = KMER_CHUNKS * KMER_CHUNK
-    kept = {"copy_s": 0.0}
-    build_index, build_kmer = driver.build_index, driver.build_kmer_layer_device
+    build_index = driver.build_index
+    index = {}
 
     def keep_index(*args, **kw):
-        kept["index"] = build_index(*args, **kw)
-        return kept["index"]
+        index["index"] = build_index(*args, **kw)
+        return index["index"]
 
-    def keep_part2(g, recs, *args, part_offset, rows, **kw):
-        if part_offset:                  # part 2, before its build
-            t = time.perf_counter()
-            kept.update(g0=copy.deepcopy(g), lo=part_offset,
-                        recs=driver._subset_pairs(recs, rows[:n_rec]))
-            kept["copy_s"] += time.perf_counter() - t
-        return build_kmer(g, recs, *args, part_offset=part_offset,
-                          rows=rows, **kw)
-
-    driver.build_index, driver.build_kmer_layer_device = keep_index, keep_part2
+    driver.build_index = keep_index
     try:
-        t0 = time.perf_counter()
-        (line1, line2, ctx), launches, lanes, by_l = counted(
-            lambda: bigscale.run(BIG_MB, BIG_DEPTH, BIG_PART, device="cuda",
-                                 work_dir=str(work)))
-        wall = time.perf_counter() - t0
+        # part 2 is the one at a non-zero offset
+        with kept_kmer_part(lambda lo: lo > 0) as kept:
+            t0 = time.perf_counter()
+            (line1, line2, ctx), launches, lanes, by_l = counted(
+                lambda: bigscale.run(BIG_MB, BIG_DEPTH, BIG_PART,
+                                     device="cuda", work_dir=str(work)))
+            wall = time.perf_counter() - t0
     finally:
-        driver.build_index, driver.build_kmer_layer_device = \
-            build_index, build_kmer
+        driver.build_index = build_index
     require_launched("big", launches, by_l, results)
     for n, r in results.items():
         r["launches"] += launches[n]
@@ -1237,7 +1346,7 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
     del ctx
     t0 = time.perf_counter()
     gseq = np.asarray(genome.seq, np.int8)
-    index = kept.pop("index")
+    index = index.pop("index")
     n = BIG_CHECK_PAIRS
     sub = Reads(n, reads.max_len, reads.data[:2 * n], reads.lengths[:n])
     got = ReadAligner.from_index(gseq, index, cfg, device="cuda").align(sub)
@@ -1250,39 +1359,150 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
     phase("big", f"read aligner cuda == cpu on {n} pairs, {got.n} records, "
           f"every field, the run's index of {len(gseq)} bases "
           f"({time.perf_counter() - t0:.1f} s)")
+    part_kmer_vs_oracle("big", "part 2", kept, cfg)
 
-    # part 2's k-mer build against the host oracle
-    g0, recs, lo = kept["g0"], kept["recs"], kept["lo"]
-    k, iv = cfg.k_mer, cfg.insert_variation
-    g_host = copy.deepcopy(g0)
+
+# phase chroms: BASELINE.json config 2's layout (S. cerevisiae R64's 16
+# chromosomes, workload.YEAST_R64), 20x, --iterativeMap --part 1
+CHROMS_DEPTH, CHROMS_SEED = 20.0, 288
+CHROMS_KMER_PART = "chrXII"
+# the run's product, recorded on the H100 by the first passing run
+# (PERF.md), kept as BIG_EVAL is kept; None: print it, compare nothing
+CHROMS_EVAL = {"extended": 128, "n_contigs": 128, "n_true_contigs": 128,
+               "n50": 156_365, "covered_length": 12_020_145, "mpmb": 0.0,
+               "average_identity": 0.9989}
+CHROMS_KMER_STATS = {"tuples": 114_545_539, "rows": 229_170_194,
+                     "groups": 114_735_300, "dropped_rank": 0,
+                     "dropped_slots": 0, "dropped_edges": 0}
+
+
+def chromosomes(results: dict, work: Path, smi: str) -> None:
+    """Phase chroms: the CLI (main, on "cuda") with --iterativeMap at
+    --part 1 on a 16-chromosome genome (workload.make_multichrom_workload
+    at workload.YEAST_R64's lengths, CHROMS_DEPTH, CHROMS_SEED; FASTA by
+    write_multichrom_fasta), then Eval of its extended contigs against the
+    16-record target on "cuda"; its invariants and pins; then the device
+    k-mer build of CHROMS_KMER_PART's part against the host oracle on
+    its first KMER_CHUNKS chunks of records."""
+    import resource
+
+    from aligngraph_tpu_torch import Config
+    from aligngraph_tpu_torch import __main__ as cli
+    from aligngraph_tpu_torch.evaluate.evaluate import evaluate
+    from aligngraph_tpu_torch.workload import (
+        YEAST_R64, make_multichrom_workload, write_multichrom_fasta)
+
+    t_phase = time.perf_counter()
+    names = [n for n, _ in YEAST_R64]
+    lens = [ln for _, ln in YEAST_R64]
+    wl = make_multichrom_workload(lens, CHROMS_DEPTH, CHROMS_SEED)
+    work.mkdir()
+    write_multichrom_fasta(work, names, wl)
+    n_pairs, n_contigs = len(wl["lens"]), len(wl["contigs"])
+    ref_lens = [len(r) for r in wl["refs"]]
+    del wl
+    xii = names.index(CHROMS_KMER_PART)
+    lo_xii = sum(ref_lens[:xii])
+    phase("chroms", f"{len(names)} chromosomes, {sum(ref_lens)} reference "
+          f"bases, {n_pairs} pairs, {n_contigs} draft contigs; set-up "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    out = work / "cli"
+    out.mkdir()
+    argv = ["--read1", str(work / "r1.fa"), "--read2", str(work / "r2.fa"),
+            "--contig", str(work / "contigs.fa"), "--genome",
+            str(work / "genome.fa"), "--distanceLow", "300",
+            "--distanceHigh", "700", "--iterativeMap",
+            "--extendedContig", str(out / "extended.fa"),
+            "--remainingContig", str(out / "remaining.fa")]
+    cwd = os.getcwd()
+    os.chdir(out)                       # the CLI's work dir is ./tmp
     t0 = time.perf_counter()
-    st_host = build_kmer_layer(g_host, recs, reads, k, iv, part_offset=lo,
-                               chunk_records=KMER_CHUNK)
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
+    try:
+        with pipeline_results() as kept_runs, \
+                kept_kmer_part(lambda lo: lo == lo_xii) as kept:
+            rc, launches, lanes, by_l = counted(
+                lambda: cli.main(argv, device="cuda"))
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"chroms: the CLI exited {rc}")
+    require_launched("chroms", launches, by_l, results)
+    res = kept_runs[0]
+    st = res.stats
+    t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    st_dev = kj.build_kmer_layer_device(g0, recs, reads, k, iv,
-                                        part_offset=lo,
-                                        chunk_records=KMER_CHUNK,
-                                        device="cuda")
-    torch.cuda.synchronize()
-    dev_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    state = kj.state_bytes(g0.km_cnt.shape[0])
-    bad = [f for f in KM_FIELDS
-           if getattr(g0, f).dtype != getattr(g_host, f).dtype
-           or not np.array_equal(getattr(g0, f), getattr(g_host, f))]
-    if bad or dataclasses.asdict(st_dev) != dataclasses.asdict(st_host) \
-            or recs.n != n_rec:
-        raise AssertionError(f"big: part 2's device k-mer build != host "
-                             f"oracle: fields {bad}, stats {st_dev} vs "
-                             f"{st_host}, {recs.n} records")
-    phase("big", f"part 2 (offset {lo}, {g0.km_cnt.shape[0]} positions): "
-          f"first {recs.n} accepted records, host oracle {host_s:.3f} s, "
-          f"device {dev_s:.3f} s; all {len(KM_FIELDS)} fields and the stats "
-          f"equal: {dataclasses.asdict(st_dev)}; peak device memory "
-          f"{peak / 2**30:.2f} GiB (state {state / 2**30:.2f} GiB)")
+    metrics, e_launches, e_lanes, e_by_l = counted(
+        lambda: evaluate(work / "target.fa", out / "extended.fa",
+                         device="cuda"))
+    eval_s = time.perf_counter() - t0
+    eval_peak = torch.cuda.max_memory_allocated()
+    require_launched("chroms_eval", e_launches, e_by_l, results)
+    for n, r in results.items():
+        r["launches"] += launches[n] + e_launches[n]
+
+    stage = st["stage_seconds"]
+    phase("chroms", f"CLI --iterativeMap --part 1: {st['n_parts']} parts, "
+          f"k-mer build {st['graph_build']}, CLI wall {wall:.2f} s, "
+          f"run_pipeline {res.wall_seconds:.2f} s; formalize "
+          f"{st['formalize_seconds']:.2f} s; stages " + ", ".join(
+              f"{k} {stage[k]:.2f} s" for k in
+              ("alignment", "contig_layer", "kmer_build", "traverse",
+               "refinement"))
+          + f"; read records {st['read_alignments']}, contig placements "
+          f"{st['contig_placements']}; Eval {eval_s:.2f} s; {smi}")
+    for p, f in sorted(st["parts"].items()):
+        phase("chroms", f"part {p} ({names[p]}, {ref_lens[p]} b): reads "
+              f"{f['read_index_s']:.2f} s index + {f['reads_s']:.2f} s "
+              f"({f['read_records']} records), contigs "
+              f"{f['contig_index_s']:.2f} s index + {f['contigs_s']:.2f} s "
+              f"({f['contig_placements']} placements), contig layer "
+              f"{f['contig_layer_s']:.2f} s, k-mer build "
+              f"{f['kmer_build_s']:.2f} s ({f['kmer_records']} records), "
+              f"traverse {f['traverse_s']:.2f} s")
+    mem = st["memory"]
+    dev_peak = max(v.get("device_peak_bytes", 0) for v in mem.values())
+    phase("chroms", f"peak device GiB: stages {dev_peak / 2**30:.2f}, Eval "
+          f"{eval_peak / 2**30:.2f}; host: the alignment stage's RSS "
+          f"{mem['alignment']['host_rss_bytes'] / 1e9:.2f} GB (per-part "
+          f"records before their join {st['part_records_bytes'] / 1e9:.3f} "
+          f"GB), max RSS of this process (every phase so far) "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} "
+          f"GB; launches {launches}, lanes {lanes}; Eval launches "
+          f"{e_launches}")
+    phase("chroms", f"extended {len(res.extended_ids)}, remaining "
+          f"{len(res.remaining_ids)}; kmer stats {st['kmer_build']}; Eval "
+          f"{metrics}")
+    if st["n_parts"] != len(names) or st["graph_build"] != "device":
+        raise AssertionError(f"chroms: {st['n_parts']} parts, k-mer build "
+                             f"{st['graph_build']}")
+    need = {f"{k} L{L}" for k in KERNEL_NAMES for L in (L_MAIN, L_TILE)}
+    if not need <= set(by_l):
+        raise AssertionError(f"chroms: kernels not launched at L 100 and "
+                             f"L 512: {sorted(need - set(by_l))}")
+    ks = st["kmer_build"]
+    bad = {k: v for k, v in ks.items() if k.startswith("dropped_") and v}
+    n_ext = len(res.extended_ids)
+    if bad or not n_ext:
+        raise AssertionError(f"chroms: dropped {bad}, extended {n_ext}")
+    if not (metrics["mpmb"] == 0.0
+            and metrics["n_true_contigs"] >= 0.95 * n_ext):
+        raise AssertionError(f"chroms: Eval {metrics} for {n_ext} extended "
+                             f"contigs")
+    got_eval = dict(extended=n_ext, **{
+        k: metrics[k] for k in ("n_contigs", "n_true_contigs", "n50",
+                                "covered_length", "mpmb")},
+        average_identity=round(metrics["average_identity"], 4))
+    if CHROMS_EVAL is None or CHROMS_KMER_STATS is None:
+        phase("chroms", f"no pins yet: CHROMS_EVAL = {got_eval}; "
+              f"CHROMS_KMER_STATS = {ks}")
+    elif got_eval != CHROMS_EVAL or ks != CHROMS_KMER_STATS:
+        raise AssertionError(f"chroms: {got_eval} {ks} != the recorded "
+                             f"{CHROMS_EVAL} {CHROMS_KMER_STATS}")
+    part_kmer_vs_oracle("chroms", f"part {xii} ({CHROMS_KMER_PART})", kept,
+                        Config.from_argv(argv))
+    phase("chroms", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1332,6 +1552,8 @@ def main() -> int:
     del ra
     with tempfile.TemporaryDirectory() as tmp:
         big_genome(results, Path(tmp) / "big", smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        chromosomes(results, Path(tmp) / "chroms", smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

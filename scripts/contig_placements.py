@@ -50,7 +50,7 @@ def main(argv) -> int:
     runs = (("jax", jc, jf, lambda g, c, cfg: jd._align_contigs_per_part(
                 g, c, cfg)),
             ("torch", tc, tf, lambda g, c, cfg: td._align_contigs_per_part(
-                g, c, cfg, "cpu")))
+                g, c, cfg, "cpu", {})))
     for pkg, cmod, fmod, align in runs:
         contigs = fmod.formalize_contigs(d / "contigs.fa")
         genome = fmod.formalize_genome(d / "genome.fa", part)

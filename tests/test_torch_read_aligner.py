@@ -210,7 +210,8 @@ def test_port_sources_import_no_jax():
             "checkpoint.py", "textout.py", "hostmem.py",
             "log.py", "mesh.py", "halo.py", "kmer_shard.py",
             "dryrun.py", "bench.py", "bench_pipeline.py",
-            "ecoli_scale.py"} <= {f.name for f in files}
+            "ecoli_scale.py", "profile_align.py",
+            "profile_contig.py"} <= {f.name for f in files}
     for f in files + [REPO / "chip_smoke.py"]:
         text = f.read_text()
         assert not pat.search(text), f
