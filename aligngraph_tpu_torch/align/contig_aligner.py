@@ -2,9 +2,13 @@
 PyTorch port.
 
 Counterpart of aligngraph_tpu/align/contig_aligner.py; its output equals
-the JAX ContigAligner.align field by field.  The design is the same:
-  1. host seeding: the chunk's seeds (both orientations) looked up with
-     np.searchsorted in the canonical SeedIndex -> (qpos, diagonal) hits
+the JAX ContigAligner.align field by field.  The design is the same, but
+for where the seeds are looked up:
+  1. device seeding: every chunk and its reverse complement uploaded at
+     once, their seeds looked up in the canonical SeedIndex on the
+     aligner's device in a few batched calls
+     (ops/seeding.contig_seed_hits) -> (qpos, tpos) hits per chunk and
+     orientation, the hits the JAX module's per-query host lookup gives
   2. host chaining: diagonal clusters, chained into placements when
      query-collinear (absorbs large indels the way BLAT chains blocks)
   3. device tile DP: the chunk is cut into 512-base tiles; each
@@ -16,12 +20,12 @@ the JAX ContigAligner.align field by field.  The design is the same:
   5. the loadContiAli filters (AlignGraph.cpp:841)
 The host parts (_tile_diags, _fill_gapless_holes, _finalize) are copies
 of the JAX module's: that module imports jax, which the machine with the
-card does not have.  _cluster_and_chain, _seed_hits and _enforce_monotone
-return what the JAX module's return, faster: at tens of Mb, random 13-mer
-hits make tens of thousands of clusters in one long contig (the JAX
-module's loops are quadratic in them) and junk placements whose blocks
-the chain DP walks (now in C++, native/chain.cpp); those loops took most
-of Eval's time (PERF.md).
+card does not have.  _cluster_and_chain and _enforce_monotone return
+what the JAX module's return, faster: at tens of Mb, random 13-mer hits
+make tens of thousands of clusters in one long contig (the JAX module's
+loops are quadratic in them) and junk placements whose blocks the chain
+DP walks (now in C++, native/chain.cpp); those loops took most of Eval's
+time (PERF.md).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from aligngraph_tpu_torch.config import Config, INIT_CONTIG_THRESHOLD
 from aligngraph_tpu_torch.io.formalize import Contigs
 from aligngraph_tpu_torch.ops.banded_sw import banded_sw_posmap_auto
 from aligngraph_tpu_torch.ops.seeding import (
-    SeedIndex, build_index, pack_kmers_np, rc_packed_np)
+    SeedIndex, build_index, contig_seed_hits)
 
 TILE = 512
 # every tile re-anchors its diagonal from its own seed hits (_tile_diags),
@@ -59,6 +63,16 @@ _COMP_NP = np.array([3, 2, 1, 0, 4], dtype=np.int8)
 
 def _revcomp_np(seq: np.ndarray) -> np.ndarray:
     return _COMP_NP[seq][::-1]
+
+
+def query_segments(contigs: Contigs) -> List[np.ndarray]:
+    """Every chunk forward, then its reverse complement: segment 2c + fr
+    is chunk c in orientation fr, as align probes them."""
+    out = []
+    for c in range(contigs.n_chunks):
+        fwd = np.asarray(contigs.chunk_seq(c), np.int8)
+        out += [fwd, _revcomp_np(fwd)]
+    return out
 
 
 def _cluster_and_chain(qpos: np.ndarray, tpos: np.ndarray, chunk_len: int,
@@ -257,12 +271,13 @@ def _fill_gapless_holes(pos_map: np.ndarray) -> None:
 
 
 class ContigAligner:
-    """Aligns formalized contig chunks to the genome; the tile DP runs on
-    `device`.
+    """Aligns formalized contig chunks to the genome; the seeding and the
+    tile DP run on `device`.
 
-    index: a seed index of `genome_codes` on the CPU (build_index returns
-    one), shared with a ReadAligner built from the same index; its sorted
-    arrays are read through numpy views, never copied.
+    index: a seed index of `genome_codes`.  One on `device` (a
+    ReadAligner's, which shares it) is used as it is; one on the CPU
+    (build_index returns one) is moved there once; one on another device
+    raises.
     """
 
     def __init__(self, genome_codes: np.ndarray, cfg: Config,
@@ -271,19 +286,22 @@ class ContigAligner:
                  accept: tuple = (INIT_CONTIG_THRESHOLD,
                                   INIT_CONTIG_THRESHOLD, 200), *, device):
         self.genome_np = np.asarray(genome_codes, np.int8)
-        self.device = torch.device(device)
-        if self.device.type not in DP_BATCH:
-            raise ValueError(f"no contig-aligner path for device "
-                             f"{self.device}")
+        device = torch.device(device)
+        if device.type not in DP_BATCH:
+            raise ValueError(f"no contig-aligner path for device {device}")
+        # "cuda" -> the current card, as the tensors placed there name it
+        self.device = torch.empty(0, device=device).device
         self.cfg = cfg
         if index is None:
             index = build_index(self.genome_np, cfg.seed_len)
+        at = index.sorted_kmers.device
+        if at != self.device:
+            if at.type != "cpu":
+                raise ValueError(f"seed index on {at}, aligner on "
+                                 f"{self.device}: pass an index on either "
+                                 f"the aligner's device or the CPU")
+            index = index.to(self.device)
         self.index = index
-        if self.index.sorted_kmers.device.type != "cpu":
-            raise ValueError("the contig aligner seeds on the host: pass "
-                             "the CPU seed index (build_index returns one)")
-        self._sorted_kmers = self.index.sorted_kmers.numpy()
-        self._sorted_posflip = self.index.sorted_posflip.numpy()
         self.stride = 32 if cfg.fast_map else 16
         self.min_votes = 4 if cfg.fast_map else 2
         self.max_join_gap = max_join_gap
@@ -292,67 +310,55 @@ class ContigAligner:
         # relaxed values and filter themselves (0.1 thresholds)
         self.accept = accept
         self.dp_batch = DP_BATCH[self.device.type]
+        # the last seed_hits call's seeds, hits, batches and batch bytes
+        self.seeding: dict = {}
 
     # ------------------------------------------------------------------
-    def _seed_hits(self, seq: np.ndarray):
-        """Host lookup: forward-matching seed hits of `seq` -> (qpos, tpos).
-
-        The index is canonical (ops/seeding.py); a hit counts only when
-        query_flip XOR genome_flip == 0, i.e. `seq` as given matches the
-        genome forward (the caller probes fwd and revcomp separately)."""
-        sl = self.index.seed_len
-        packed, valid = pack_kmers_np(seq, sl)
-        qp = np.arange(0, len(packed), self.stride)
-        packed, valid = packed[qp], valid[qp]
-        qp, packed = qp[valid], packed[valid]
-        rc = rc_packed_np(packed, sl)
-        qflip = rc < packed
-        pcan = np.where(qflip, rc, packed)
-        sk = self._sorted_kmers
-        lo = np.searchsorted(sk, pcan, side="left")
-        hi = np.searchsorted(sk, pcan, side="right")
-        cnt = hi - lo
-        keep = (cnt > 0) & (cnt <= 64)   # repetitive-seed cutoff
-        qp, lo, cnt, qflip = qp[keep], lo[keep], cnt[keep], qflip[keep]
-        if not len(lo):
-            return np.zeros(0, np.int64), np.zeros(0, np.int64)
-        qpos = np.repeat(qp, cnt)
-        qfl = np.repeat(qflip, cnt)
-        # each seed's run of the index, in seed order
-        first = np.cumsum(cnt) - cnt
-        pf = self._sorted_posflip[np.repeat(lo - first, cnt)
-                                  + np.arange(len(qpos))]
-        fwd = (pf < 0) == qfl            # genome_flip XOR query_flip == 0
-        tpos = (pf & 0x7FFFFFFF).astype(np.int64)
-        return qpos[fwd].astype(np.int64), tpos[fwd]
+    def seed_hits(self, seqs: List[np.ndarray]):
+        """Forward-matching seed hits of the query segments `seqs` (int8
+        codes), all looked up at once on the aligner's device -> host
+        int64 (offsets, qpos, tpos): segment s's hits are
+        qpos[offsets[s]:offsets[s + 1]] and the same slice of tpos, each
+        the JAX module's _seed_hits(seqs[s]).  The segments go up in one
+        copy and the hits come down in one."""
+        lens = [len(s) for s in seqs]
+        flat = np.concatenate(seqs) if seqs else np.zeros(0, np.int8)
+        hits = contig_seed_hits(self.index,
+                                torch.from_numpy(flat).to(self.device),
+                                lens, self.stride)
+        n, H = len(seqs) + 1, len(hits.qpos)
+        buf = torch.cat([hits.offsets, hits.qpos, hits.tpos]).cpu().numpy()
+        self.seeding = dict(seeds=hits.seeds, hits=H, batches=hits.batches,
+                            batch_bytes=hits.batch_bytes)
+        return buf[:n], buf[n:n + H], buf[n + H:]
 
     # ------------------------------------------------------------------
     def align(self, contigs: Contigs) -> ContigAlignments:
         jobs = []       # (placement_idx, tile_start, tile_seq, tlen, g0)
         placements = []  # (chunk_id, fr, chunk_len, pos_map buffer)
-        for c in range(contigs.n_chunks):
-            fwd = np.asarray(contigs.chunk_seq(c), np.int8)
-            n_tiles = (len(fwd) + TILE - 1) // TILE
-            for fr, seq in ((0, fwd), (1, _revcomp_np(fwd))):
-                qpos, tpos = self._seed_hits(seq)
-                chains = _cluster_and_chain(qpos, tpos, len(seq),
-                                            self.min_votes,
-                                            self.max_join_gap)
-                for ch in chains:
-                    td, has = _tile_diags(ch["clusters"], n_tiles)
-                    pid = len(placements)
-                    placements.append(dict(
-                        chunk_id=c, fr=fr, length=len(seq),
-                        pos_map=np.full(len(seq), -1, np.int32)))
-                    for t in range(n_tiles):
-                        if not has[t]:
-                            continue
-                        ts = t * TILE
-                        tile = np.full(TILE, 4, np.int8)
-                        piece = seq[ts:ts + TILE]
-                        tile[:len(piece)] = piece
-                        g0 = int(td[t]) + ts
-                        jobs.append((pid, ts, tile, len(piece), g0))
+        seqs = query_segments(contigs)
+        off, qpos, tpos = self.seed_hits(seqs)
+        for i, seq in enumerate(seqs):
+            c, fr = divmod(i, 2)
+            n_tiles = (len(seq) + TILE - 1) // TILE
+            a, b = off[i], off[i + 1]
+            chains = _cluster_and_chain(qpos[a:b], tpos[a:b], len(seq),
+                                        self.min_votes, self.max_join_gap)
+            for ch in chains:
+                td, has = _tile_diags(ch["clusters"], n_tiles)
+                pid = len(placements)
+                placements.append(dict(
+                    chunk_id=c, fr=fr, length=len(seq),
+                    pos_map=np.full(len(seq), -1, np.int32)))
+                for t in range(n_tiles):
+                    if not has[t]:
+                        continue
+                    ts = t * TILE
+                    tile = np.full(TILE, 4, np.int8)
+                    piece = seq[ts:ts + TILE]
+                    tile[:len(piece)] = piece
+                    g0 = int(td[t]) + ts
+                    jobs.append((pid, ts, tile, len(piece), g0))
         self._run_tile_jobs(jobs, placements)
         return self._finalize(placements, contigs)
 

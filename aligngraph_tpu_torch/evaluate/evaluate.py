@@ -71,16 +71,11 @@ def _chunk_eval(seq: np.ndarray) -> List[np.ndarray]:
     return [seq[i:i + SIZE] for i in range(0, len(seq), SIZE)]
 
 
-def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
-             cfg: Optional[Config] = None, *, device) -> Dict[str, float]:
-    cfg = cfg or Config()
-    gids, gseqs = read_fasta(genome_path)
-    cids, craw = read_fasta(contigs_path)
-    genome_enc = [encode(s) for s in gseqs]
-
-    # E2: keep >= CUTOFF, chunk by SIZE
+def eval_queries(craw) -> Contigs:
+    """E2: the contigs (FASTA strings) of at least CUTOFF bases, encoded,
+    cut into chunks of SIZE: Eval's query set."""
     init: List[np.ndarray] = []
-    chunk_real, chunk_start, chunk_len, chunks = [], [], [], []
+    chunk_real, chunk_start, chunk_len = [], [], []
     for s in craw:
         if len(s) < CUTOFF:
             continue
@@ -91,11 +86,23 @@ def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
             chunk_real.append(rid)
             chunk_start.append(f * SIZE)
             chunk_len.append(len(piece))
-    q = Contigs(ids=[str(i) for i in range(len(init))], seqs=init,
-                chaff_ids=[], chaff_seqs=[],
-                chunk_real=np.array(chunk_real, np.int32),
-                chunk_start=np.array(chunk_start, np.int64),
-                chunk_len=np.array(chunk_len, np.int64))
+    return Contigs(ids=[str(i) for i in range(len(init))], seqs=init,
+                   chaff_ids=[], chaff_seqs=[],
+                   chunk_real=np.array(chunk_real, np.int32),
+                   chunk_start=np.array(chunk_start, np.int64),
+                   chunk_len=np.array(chunk_len, np.int64))
+
+
+def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
+             cfg: Optional[Config] = None, *, device) -> Dict[str, float]:
+    cfg = cfg or Config()
+    gids, gseqs = read_fasta(genome_path)
+    cids, craw = read_fasta(contigs_path)
+    genome_enc = [encode(s) for s in gseqs]
+
+    q = eval_queries(craw)
+    init = q.seqs
+    chunk_real, chunk_start = q.chunk_real.tolist(), q.chunk_start.tolist()
 
     metrics: Dict[str, float] = {"n_contigs": len(init)}
     if not init:

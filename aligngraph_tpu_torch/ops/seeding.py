@@ -212,6 +212,20 @@ def lookup_seeds(sorted_kmers, sorted_posflip, packed, valid,
     return slice_gather(sorted_posflip, lo, max_hits), ok
 
 
+def _search(sorted_kmers, key, lo, hi, steps: int, right: bool):
+    """`steps` bounded binary-search iterations in [lo, hi): the first
+    index whose key is >= `key` (right: > `key`)."""
+    M = sorted_kmers.shape[0]
+    for _ in range(steps):
+        go = lo < hi
+        mid = (lo + hi) >> 1
+        k = sorted_kmers[torch.clamp(mid, 0, M - 1).long()]
+        below = (k <= key) if right else (k < key)
+        lo = torch.where(go & below, mid + 1, lo)
+        hi = torch.where(go & ~below, mid, hi)
+    return lo
+
+
 def lookup_seeds_bucketed(sorted_kmers, sorted_posflip, bucket_lo, packed,
                           valid, max_hits: int, steps: int,
                           suffix_bits: int):
@@ -231,12 +245,9 @@ def lookup_seeds_bucketed(sorted_kmers, sorted_posflip, bucket_lo, packed,
     if suffix_bits == 0:
         ok = _hit_mask(valid, hi - lo, max_hits)
         return slice_gather(sorted_posflip, lo, max_hits), ok
-    for _ in range(steps if M else 0):     # an empty index has no probes
-        go = lo < hi
-        mid = (lo + hi) >> 1
-        less = sorted_kmers[torch.clamp(mid, 0, M - 1).long()] < packed
-        lo = torch.where(go & less, mid + 1, lo)
-        hi = torch.where(go & ~less, mid, hi)
+    # an empty index has no probes
+    lo = _search(sorted_kmers, packed, lo, hi, steps if M else 0,
+                 right=False)
     keys = slice_gather(sorted_kmers, lo, max_hits + 1, pad_value=_KEY_PAD)
     count = (keys == packed[..., None]).sum(dim=-1, dtype=torch.int32)
     ok = _hit_mask(valid, count, max_hits)
@@ -306,3 +317,130 @@ def select_candidates(posflip, ok, qflip, seed_offsets, qlens,
     out_diag = torch.where(out_votes > 0, out_diag - orient * RC_OFFSET,
                            INVALID_DIAG)
     return out_diag, out_votes, orient
+
+
+# The contig aligner's seeding (contig_seed_hits) keeps a seed whose run
+# holds 1 to CONTIG_MAX_RUN index entries (the contig aligner's own
+# repetitive-seed cutoff, not cfg.max_seed_hits) and runs
+# CONTIG_SEED_BUDGET seeds a batch.  A batch of B seeds whose kept runs
+# hold H hits takes at most CONTIG_SEED_BYTES * B + CONTIG_HIT_BYTES * H
+# bytes on the device: per seed its int64 segment, offset and window
+# start with their int8/int32 gathers, the int32 pack, its reverse
+# complement and the run bounds with the binary searches' temporaries;
+# per hit the int32 run index, slot and index gather, the posflip, the
+# orientation mask, the int64 kept index, the int64 segment it counts
+# into the offsets and the int64 (qpos, tpos) out.  H <= 64 * B, so
+# 2^20 seeds take ~0.26 GB at the ~1.8 run entries a seed of a 32 Mb
+# genome (the whole call's peak measured 0.25 GB on an H100, PERF.md),
+# and at most ~4.4 GB if every seed's run held 64 entries.
+CONTIG_MAX_RUN = 64
+CONTIG_SEED_BUDGET = 1 << 20
+CONTIG_SEED_BYTES = 128
+CONTIG_HIT_BYTES = 64
+
+
+@dataclasses.dataclass
+class ContigSeedHits:
+    """Seed hits of query segments, flat: segment-major, then by seed
+    (query order), then in index order.  Segment s holds hits
+    offsets[s]:offsets[s + 1] of qpos and tpos.  seeds:
+    the seed windows looked up (N-free or not); batches: the lookup's
+    batches; batch_bytes: the largest batch's device bytes, reckoned
+    (CONTIG_SEED_BYTES, CONTIG_HIT_BYTES)."""
+    qpos: torch.Tensor      # [H] int64
+    tpos: torch.Tensor      # [H] int64
+    offsets: torch.Tensor   # [n_segs + 1] int64
+    seeds: int
+    batches: int
+    batch_bytes: int
+
+
+def run_bounds(index: SeedIndex, key: torch.Tensor):
+    """Canonical packs -> each one's run [lo, hi) in sorted_kmers (int32),
+    np.searchsorted's left and right sides: the bucket itself when
+    suffix_bits == 0, else two bounded binary searches inside it."""
+    prefix = (key >> index.suffix_bits).long()
+    lo, hi = index.bucket_lo[prefix], index.bucket_lo[prefix + 1]
+    if index.suffix_bits == 0 or index.sorted_kmers.shape[0] == 0:
+        return lo, hi
+    steps = index.search_steps
+    left = _search(index.sorted_kmers, key, lo, hi, steps, right=False)
+    return left, _search(index.sorted_kmers, key, left, hi, steps,
+                         right=True)
+
+
+def contig_seed_hits(index: SeedIndex, segs: torch.Tensor, seg_lens,
+                     stride: int) -> ContigSeedHits:
+    """Forward-matching seed hits of every query segment at once, on the
+    device of `segs` and `index`.
+
+    segs: the segments' int8 codes end to end; seg_lens: their lengths
+    (host ints).  Seeds start at 0, stride, 2*stride, ... of each segment
+    up to len - seed_len; a window holding a code >= 4 is dropped.  Each
+    seed is canonicalised (qflip = rc < packed) and its run looked up
+    (run_bounds); a run of 1 to CONTIG_MAX_RUN entries is kept and
+    expanded in index order, and an entry is a hit when its genome flip
+    equals qflip (the segment as given matches the genome forward); tpos
+    is its position.  Runs are expanded ragged, by counts, a cumulative
+    sum and repeat_interleave, CONTIG_SEED_BUDGET seeds a batch."""
+    budget = CONTIG_SEED_BUDGET
+    dev = segs.device
+    sl = index.seed_len
+    lens = np.asarray(seg_lens, np.int64)
+    n_segs = len(lens)
+    n_seeds = np.where(lens >= sl, (lens - sl) // stride + 1, 0)
+    seed_end_np = np.cumsum(n_seeds)
+    S = int(seed_end_np[-1]) if n_segs else 0
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+    seg_start = up(np.cumsum(lens) - lens)
+    seed_end = up(seed_end_np)
+    seed_first = seed_end - up(n_seeds)
+    offsets = torch.zeros(n_segs + 1, dtype=torch.int64, device=dev)
+    out = {"qpos": [], "tpos": []}
+    batches = batch_bytes = 0
+    for s0 in range(0, S, budget):
+        g = torch.arange(s0, min(S, s0 + budget), device=dev)
+        seg = torch.searchsorted(seed_end, g, right=True)
+        qpos = (g - seed_first[seg]) * stride
+        at = seg_start[seg] + qpos
+        del g
+        packed = torch.zeros(len(at), dtype=torch.int32, device=dev)
+        invalid = torch.zeros(len(at), dtype=torch.bool, device=dev)
+        for k in range(sl):
+            c = segs[at + k].to(torch.int32)
+            invalid |= c >= 4
+            packed = (packed << 2) | torch.where(c >= 4, 0, c)
+        del at, c
+        rc = rc_packed(packed, sl)
+        qflip = rc < packed
+        lo, hi = run_bounds(index, torch.minimum(packed, rc))
+        cnt = hi - lo
+        del packed, rc, hi
+        kept = (~invalid & (cnt >= 1)
+                & (cnt <= CONTIG_MAX_RUN)).nonzero()[:, 0]
+        seg, qpos, lo, cnt, qflip = (a[kept] for a in
+                                     (seg, qpos, lo, cnt, qflip))
+        H = int(cnt.sum())
+        batches += 1
+        batch_bytes = max(batch_bytes, CONTIG_SEED_BYTES * len(invalid)
+                          + CONTIG_HIT_BYTES * H)
+        del invalid, kept
+        # each kept seed's run, seed-major, in index order
+        run = torch.repeat_interleave(cnt, output_size=H)
+        first = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
+        slot = torch.arange(H, dtype=torch.int32, device=dev) - first[run]
+        pf = index.sorted_posflip[lo[run] + slot]
+        del slot
+        fwd = ((pf < 0) == qflip[run]).nonzero()[:, 0]
+        run = run[fwd]
+        offsets[1:] += torch.bincount(seg[run], minlength=n_segs)
+        out["qpos"].append(qpos[run])
+        out["tpos"].append((pf[fwd] & POS_MASK).long())
+    cat = {k: torch.cat(v) if v else torch.zeros(0, dtype=torch.int64,
+                                                  device=dev)
+           for k, v in out.items()}
+    return ContigSeedHits(offsets=torch.cumsum(offsets, 0), seeds=S,
+                          batches=batches, batch_bytes=batch_bytes, **cat)

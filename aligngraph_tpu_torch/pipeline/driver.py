@@ -14,7 +14,8 @@ Checkpointing (C15) is stage+part granular via pipeline/checkpoint.py.
 
 PyTorch port: a copy of aligngraph_tpu/pipeline/driver.py (which imports
 the JAX aligners) with the port's ReadAligner and ContigAligner on
-`device`, sharing one seed index built on the host, and with
+`device`, sharing one seed index built on the host and placed on the
+device (one a part under --iterativeMap), and with
 cfg.graph_build="device" the port's k-mer layer build
 (graph/kmer_layer_jit.py) on `device`.  The contig layer, the host k-mer
 build, traversal, checkpointing and stage files are the port's own copies
@@ -122,6 +123,15 @@ def _part_stats(stats: Dict, p: int) -> Dict:
     return stats.setdefault("parts", {}).setdefault(p, {})
 
 
+def _lift_contig_ali(r: ContigAlignments, off: int) -> ContigAlignments:
+    """A part's placements (in place) on the global genome axis."""
+    off = np.int32(off)
+    r.target_start += off
+    r.target_end += off
+    r.pos_map = [np.where(pm >= 0, pm + off, pm) for pm in r.pos_map]
+    return r
+
+
 def _align_contigs_per_part(genome: Genome, contigs: Contigs,
                             cfg: Config, device, stats: Dict
                             ) -> ContigAlignments:
@@ -144,11 +154,7 @@ def _align_contigs_per_part(genome: Genome, contigs: Contigs,
         _part_stats(stats, p).update(contig_index_s=tb - t,
                                      contigs_s=time.time() - tb,
                                      contig_placements=r.n)
-        off = np.int32(genome.part_gstart[p])
-        r.target_start += off
-        r.target_end += off
-        r.pos_map = [np.where(pm >= 0, pm + off, pm) for pm in r.pos_map]
-        parts.append(r)
+        parts.append(_lift_contig_ali(r, genome.part_gstart[p]))
     return _concat_contig_ali(parts)
 
 
@@ -164,24 +170,32 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
     if cfg.iterative_map and genome.n_parts > 1:
         # --iterativeMap: per-part read alignment (reference `task0`
         # per-chromosome branch, AlignGraph.cpp:3581-3613) — bounds
-        # index memory at the cost of one pass per part
-        parts = []
+        # index memory at the cost of one pass per part.  Each part's one
+        # seed index serves its reads, then its contigs (the reference's
+        # `task1` per part); read_index_s is its build.
+        parts, c_parts = [], []
         for p in range(genome.n_parts):
             pseq = np.asarray(genome.part_seq(p), np.int8)
             if len(pseq) < cfg.seed_len:
                 continue
             t = time.time()
-            ra = ReadAligner.build(pseq, cfg, device=device)
+            ra = ReadAligner.from_index(pseq, build_index(pseq, cfg.seed_len),
+                                        cfg, device=device)
             tb = time.time()
             r = ra.align(reads)
-            _part_stats(stats, p).update(read_index_s=tb - t,
-                                         reads_s=time.time() - tb,
-                                         read_records=r.n)
+            tc = time.time()
+            c = ContigAligner(pseq, cfg, index=ra.index,
+                              device=device).align(contigs)
+            del ra
+            _part_stats(stats, p).update(
+                read_index_s=tb - t, reads_s=tc - tb, read_records=r.n,
+                contigs_s=time.time() - tc, contig_placements=c.n)
             off = int(genome.part_gstart[p])
             r.target_start += np.where(r.target_start >= 0, off, 0)
             r.target_end += np.where(r.target_end >= 0, off, 0)
             r.pos_map += np.where(r.pos_map >= 0, off, 0)
             parts.append(r)
+            c_parts.append(_lift_contig_ali(c, off))
         if parts:
             stats["part_records_bytes"] = heap.host_bytes(parts)
             rali = PairAlignments(**{
@@ -192,25 +206,27 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
             # anywhere (degenerate input; previously crashed on
             # np.concatenate of an empty list)
             rali = PairAlignments.empty(max(reads.max_len, 1))
-        return rali, _align_contigs_per_part(genome, contigs, cfg, device,
-                                             stats)
+        return rali, _concat_contig_ali(c_parts)
 
     # the reference overlaps read-align and contig-align with a 2-pthread
     # fork (`parallelMap`, AlignGraph.cpp:3720-3735); ours overlaps them
-    # with 2 host threads (read batches stream through the device while
-    # contig seeding/chaining runs on the host).  One seed index, built on
-    # the host, serves both: the contig aligner seeds on it there, the
-    # read aligner holds its own copy on the device.
+    # with 2 host threads (read batches and the contigs' seeds and tile
+    # DP stream through the device while the other thread's host work
+    # runs).  One seed index, built on the host, serves both: the read
+    # aligner places it on the device, and the contig aligner seeds on
+    # that copy; the host copy dies here.
     import concurrent.futures as _cf
 
     t = time.time()
     index = build_index(gseq, cfg.seed_len)
     stats["seed_index_bytes"] = heap.host_bytes(index)
     r_aligner = ReadAligner.from_index(gseq, index, cfg, device=device)
+    del index
     # seconds of the index build and of each thread
     threads = stats["alignment_threads"] = {"index": time.time() - t}
     if genome.n_parts == 1:
-        c_aligner = ContigAligner(gseq, cfg, index=index, device=device)
+        c_aligner = ContigAligner(gseq, cfg, index=r_aligner.index,
+                                  device=device)
         align_c = lambda: c_aligner.align(contigs)  # noqa: E731
     else:
         align_c = lambda: _align_contigs_per_part(  # noqa: E731

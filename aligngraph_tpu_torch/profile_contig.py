@@ -13,7 +13,10 @@ that loads the kernels), then:
 
   1. layers: `reps` aligns, each layer timed on the host clock, the
      device synchronised around the layers that run on it:
-       seed          ContigAligner._seed_hits (the instance's, wrapped)
+       seed          ContigAligner.seed_hits (the instance's, wrapped,
+                     the device synchronised around it): every chunk's
+                     and orientation's seeds looked up on the device in
+                     a few batched calls, the hits copied to the host
        chain         contig_aligner._cluster_and_chain (the module's,
                      wrapped; align looks it up at call time)
        tile_jobs     the tile-job assembly inside align: align's wall
@@ -36,6 +39,12 @@ that loads the kernels), then:
      (profile_align.device_profile): device busy time, idle share and
      peak device memory; the ops by device time to
      DIR/profile_contig_device.txt.
+
+The JSON's "seeding" holds the seed, hit and batch counts of one align,
+the largest batch's device bytes as reckoned (ops/seeding
+CONTIG_SEED_BYTES, CONTIG_HIT_BYTES) and, on CUDA, the peak device bytes
+allocated during the seeding call above what was allocated before it and
+the call's CUDA-event ms (measure_seeding).
 
 Prints the JAX script's two lines (genome=... contigs=... placements=...
 backend=..., then index_build=... align_wall=... seed=... chain=... dp=...
@@ -165,18 +174,39 @@ def layer_align(ca, contigs, device) -> tuple:
 
     chain = cal._cluster_and_chain
     cal._cluster_and_chain = clocked(chain, "chain", False)
-    ca._seed_hits = clocked(ca._seed_hits, "seed", False)
+    ca.seed_hits = clocked(ca.seed_hits, "seed", True)
     ca._run_tile_jobs = clocked(jobs, "dp", True)
     ca._finalize = clocked(ca._finalize, "finalize", False)
     try:
         res, wall = timed_align(ca, contigs, device)
     finally:
         cal._cluster_and_chain = chain
-        for name in ("_seed_hits", "_run_tile_jobs", "_finalize"):
+        for name in ("seed_hits", "_run_tile_jobs", "_finalize"):
             del ca.__dict__[name]
     totals["tile_jobs"] = wall - sum(totals[k] for k in
                                      ("seed", "chain", "dp", "finalize"))
     return res, wall, totals
+
+
+def measure_seeding(ca, segs, device) -> tuple:
+    """One ca.seed_hits(segs) -> (its host hits, ca.seeding), the stats
+    with, on CUDA, device_peak_bytes (the peak allocated during the call
+    less what was allocated before it) and device_ms (CUDA events around
+    the call)."""
+    if device.type != "cuda":
+        hits = ca.seed_hits(segs)
+        return hits, dict(ca.seeding)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ev[0].record()
+    hits = ca.seed_hits(segs)
+    ev[1].record()
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    return hits, dict(ca.seeding, device_peak_bytes=peak - base,
+                      device_ms=ev[0].elapsed_time(ev[1]))
 
 
 def main(argv=None) -> dict:
@@ -242,6 +272,9 @@ def main(argv=None) -> dict:
         report["walls_s"].append(wall)
     print("walls", [round(w, 4) for w in report["walls_s"]], "launches",
           report.get("launches_by_length"), flush=True)
+    _, report["seeding"] = measure_seeding(
+        ca, cal.query_segments(contigs), device)
+    print("seeding", report["seeding"], flush=True)
     if device.type == "cuda":
         report["profile"] = device_profile(ca, contigs, device, args.out,
                                            "profile_contig_device.txt")

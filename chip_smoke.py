@@ -53,7 +53,12 @@ Phases, one line each, any failure raises (non-zero exit):
   kmer: the device k-mer layer build on bench_pipeline.py's workload
      (seed 7, 4.6 Mb, depth 25 = 575,000 pairs of 100 bp, 1,424 draft
      contigs, distance 300-700, one part): both aligners on "cuda" as the
-     driver runs them, the contig layer, then the first 4 chunks of
+     driver runs them (the contig aligner on the read aligner's device
+     index, not copied); the contig seeding of every draft contig's
+     chunks in both orientations on "cuda" and on "cpu" (offsets, qpos,
+     tpos equal, and again on the card in batches of 2^16 seeds; seeds,
+     hits, batches, device bytes reckoned and peak, the card's CUDA-event
+     ms); the contig layer, then the first 4 chunks of
      16,384 accepted records through the host oracle (build_kmer_layer,
      numpy) and through build_kmer_layer_device on "cuda": every k-mer
      and edge array and every build statistic equal; both walls and the
@@ -106,7 +111,9 @@ Phases, one line each, any failure raises (non-zero exit):
      Mb positions, part_offset 16 Mb; the graph after its contig layer and
      the records as run_pipeline hands them to the build) against the
      host oracle on the part's first 4 chunks of 16,384 accepted records:
-     all 13 arrays and the stats equal.
+     all 13 arrays and the stats equal.  Last, apart from the pinned
+     Eval, Eval's contig align on its own query set by profile_contig's
+     layers (index, seed, chain, tile jobs, DP, finalize).
   chroms: BASELINE.json config 2's layout, S. cerevisiae R64's 16
      chromosomes (12,071,326 bases, workload.YEAST_R64; the sequences from
      seed 288, workload.make_multichrom_workload), 20x (1,207,132 pairs of
@@ -766,6 +773,9 @@ KM_FIELDS = ("km_cnt", "km_contig", "km_coff", "km_contig0", "km_coff0",
              "km_mate", "km_cov", "km_votes", "km_s", "km_slen", "ed_cnt",
              "ed_pos", "ed_item")
 KMER_CHUNK = 16_384
+# phase kmer holds the card's contig seeding to the CPU's again in
+# batches of this many seeds (the 4.6 Mb drafts' ~534 k seeds take 9)
+SMALL_SEED_BUDGET = 1 << 16
 KMER_CHUNKS = 4
 
 
@@ -787,6 +797,83 @@ def full_workload(work: Path, **size) -> dict:
     return wl
 
 
+def seeding_cuda_vs_cpu(ra, gseq, cfg, contigs, index) -> None:
+    """Phase kmer: the contig aligner's seeding of every draft contig's
+    chunks, both orientations, on the card (ContigAligner.seed_hits on
+    the read aligner's device index, which it must take without a copy)
+    and on the CPU (the host index `index`): offsets, qpos and tpos equal,
+    dtype and all; then the card's again in batches of SMALL_SEED_BUDGET
+    seeds (segments straddling batches, the offsets summed over them),
+    equal too.  Prints the seeds, hits and batches, the largest batch's
+    device bytes (reckoned, and the peak allocated during the call above
+    what was allocated before it), the card's call in CUDA-event ms (a
+    warm call before it; profile_contig.measure_seeding) and the CPU's
+    wall."""
+    from aligngraph_tpu_torch import profile_contig
+    from aligngraph_tpu_torch.align.contig_aligner import (ContigAligner,
+                                                           query_segments)
+    from aligngraph_tpu_torch.ops import seeding
+
+    segs = query_segments(contigs)
+    ca = ContigAligner(gseq, cfg, index=ra.index, device="cuda")
+    if any(getattr(ca.index, f) is not getattr(ra.index, f)
+           for f in ("sorted_kmers", "sorted_posflip", "bucket_lo")):
+        raise AssertionError("the contig aligner copied the device index")
+    ca.seed_hits(segs)
+    got, st = profile_contig.measure_seeding(ca, segs, ca.device)
+    t0 = time.perf_counter()
+    want = ContigAligner(gseq, cfg, index=index, device="cpu").seed_hits(segs)
+    cpu_s = time.perf_counter() - t0
+    budget = seeding.CONTIG_SEED_BUDGET
+    seeding.CONTIG_SEED_BUDGET = SMALL_SEED_BUDGET
+    try:
+        small = ca.seed_hits(segs)
+    finally:
+        seeding.CONTIG_SEED_BUDGET = budget
+    n_small = ca.seeding["batches"]
+    bad = [f"{n}{tag}" for tag, hits in (("", got), (" (small)", small))
+           for n, a, b in zip(("offsets", "qpos", "tpos"), hits, want)
+           if a.dtype != b.dtype or not np.array_equal(a, b)]
+    if bad or not st["hits"] or n_small < 2:
+        raise AssertionError(f"kmer: the card's seeding != the CPU's in "
+                             f"{bad} ({st}; {n_small} small batches)")
+    phase("kmer", f"contig seeding: {contigs.n_chunks} chunks of "
+          f"{len(contigs.seqs)} draft contigs, both orientations: "
+          f"{st['seeds']} seeds, {st['hits']} hits, {st['batches']} "
+          f"batch(es); device bytes reckoned {st['batch_bytes']}, peak "
+          f"allocated {st['device_peak_bytes']}; cuda "
+          f"{st['device_ms']:.3f} ms (CUDA events), cpu {cpu_s * 1e3:.1f} "
+          f"ms; offsets, qpos and tpos equal, and equal again on the card "
+          f"in {n_small} batches of {SMALL_SEED_BUDGET} seeds")
+
+
+def eval_align_layers(genome_path, contigs_path) -> str:
+    """Eval's contig align by layer, run apart from (after) the pinned
+    Eval, which runs unwrapped: Eval's query set (evaluate.eval_queries)
+    and target (its records end to end), Eval's aligner on "cuda" (its
+    seed index build timed) and one profile_contig.layer_align, each
+    layer timed, the device synchronised around the seeding and the tile
+    DP.  Its launches are no path's.  Returns the split as one line."""
+    from aligngraph_tpu_torch import Config, profile_contig
+    from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
+    from aligngraph_tpu_torch.evaluate.evaluate import eval_queries
+    from aligngraph_tpu_torch.io.fasta import encode, read_fasta
+
+    t0 = time.perf_counter()
+    gcat = np.concatenate([encode(s) for s in read_fasta(genome_path)[1]])
+    q = eval_queries(read_fasta(contigs_path)[1])
+    t1 = time.perf_counter()
+    ca = ContigAligner(gcat, Config(), accept=(0.0, 0.0, 0), device="cuda")
+    t2 = time.perf_counter()
+    res, wall, layers = profile_contig.layer_align(ca, q, ca.device)
+    return (f"Eval's align by layer (eval_align_layers, after the pinned "
+            f"Eval): {q.n_chunks} chunks, {res.n} placements; FASTA and "
+            f"encoding {t1 - t0:.3f} s, index {t2 - t1:.3f} s, align "
+            f"{wall:.3f} s (" + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in layers.items())
+            + ")")
+
+
 def kmer_build(wl: dict) -> dict:
     """Phase kmer: the device k-mer build against the host oracle on the
     first 4 chunks of the full workload's accepted records.  Returns the
@@ -806,10 +893,14 @@ def kmer_build(wl: dict) -> dict:
     t0 = time.perf_counter()
     gseq = np.asarray(genome.seq, np.int8)
     index = build_index(gseq, cfg.seed_len)
-    rali = ReadAligner.from_index(gseq, index, cfg,
-                                  device="cuda").align(reads)
-    cali = ContigAligner(gseq, cfg, index=index,
+    ra = ReadAligner.from_index(gseq, index, cfg, device="cuda")
+    rali = ra.align(reads)
+    # the driver's hand-off: the contig aligner seeds on the read
+    # aligner's device index
+    cali = ContigAligner(gseq, cfg, index=ra.index,
                          device="cuda").align(wl["contigs"])
+    seeding_cuda_vs_cpu(ra, gseq, cfg, wl["contigs"], index)
+    del ra, index
     # the driver's C13 filter; one part, so every record is in it
     ok = np.nonzero(rali.ratio_ok(THRESHOLD))[0][:KMER_CHUNKS * KMER_CHUNK]
     recs = dataclasses.replace(rali, **{
@@ -1270,21 +1361,28 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
     path), its invariants, the read aligner on cuda against cpu on
     BIG_CHECK_PAIRS pairs at the run's 32 Mb index, and part 2's device
     k-mer build against the host oracle on the part's first KMER_CHUNKS
-    chunks of accepted records (graph and records as run_pipeline gave
-    them to its build: the driver's build_index and
-    build_kmer_layer_device are wrapped for the run to keep them)."""
+    chunks of accepted records (index, graph and records as run_pipeline
+    gave them to its aligners and its build: the driver's ReadAligner,
+    whose device index the contig aligner shares, and
+    build_kmer_layer_device are wrapped for the run to keep them); then
+    Eval's align by layer (eval_align_layers)."""
     from aligngraph_tpu_torch import ReadAligner, Reads
     from aligngraph_tpu_torch import bigscale
     from aligngraph_tpu_torch.pipeline import driver
 
-    build_index = driver.build_index
-    index = {}
+    index, real = {}, driver.ReadAligner
 
-    def keep_index(*args, **kw):
-        index["index"] = build_index(*args, **kw)
-        return index["index"]
+    class KeepIndex(real):
+        """The driver's read aligner, its device seed index kept (the
+        driver drops the host index once the aligners hold this one)."""
 
-    driver.build_index = keep_index
+        @classmethod
+        def from_index(cls, *args, **kw):
+            ra = super().from_index(*args, **kw)
+            index["index"] = ra.index
+            return ra
+
+    driver.ReadAligner = KeepIndex
     try:
         # part 2 is the one at a non-zero offset
         with kept_kmer_part(lambda lo: lo > 0) as kept:
@@ -1294,7 +1392,7 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
                                      device="cuda", work_dir=str(work)))
             wall = time.perf_counter() - t0
     finally:
-        driver.build_index = build_index
+        driver.ReadAligner = real
     require_launched("big", launches, by_l, results)
     for n, r in results.items():
         r["launches"] += launches[n]
@@ -1304,7 +1402,8 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
           f"{line1['n_pairs']} pairs; setup {line1['setup_seconds']} s, "
           f"run_pipeline {line1['value']} s, stages "
           f"{line1['stage_seconds']} (kmer_build with {kept['copy_s']:.1f} s "
-          f"of this phase's copy of part 2), eval {line2['eval_s']} s, "
+          f"of this phase's copy of part 2), alignment threads "
+          f"{line1['alignment_threads']}, eval {line2['eval_s']} s, "
           f"phase wall {wall:.1f} s; {smi}")
     phase("big", f"peak device GiB by stage {mem}, Eval "
           f"{line2['device_peak_bytes'] / 2**30:.2f}; k-mer state bytes "
@@ -1340,6 +1439,7 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
     if got != {**BIG_EVAL, **BIG_KMER_STATS}:
         raise AssertionError(f"big: {got} != the recorded "
                              f"{BIG_EVAL} {BIG_KMER_STATS}")
+    phase("big", eval_align_layers(work / "target.fa", work / "extended.fa"))
 
     # the read aligner on cuda against cpu at the run's 32 Mb index
     cfg, reads, genome = ctx["cfg"], ctx["reads"], ctx["genome"]
@@ -1350,7 +1450,8 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
     n = BIG_CHECK_PAIRS
     sub = Reads(n, reads.max_len, reads.data[:2 * n], reads.lengths[:n])
     got = ReadAligner.from_index(gseq, index, cfg, device="cuda").align(sub)
-    cpu = ReadAligner.from_index(gseq, index, cfg, device="cpu").align(sub)
+    cpu = ReadAligner.from_index(gseq, index.to("cpu"), cfg,
+                                 device="cpu").align(sub)
     for f in FIELDS:
         a, b = getattr(got, f), getattr(cpu, f)
         if a.dtype != b.dtype or not np.array_equal(a, b):
@@ -1455,8 +1556,8 @@ def chromosomes(results: dict, work: Path, smi: str) -> None:
     for p, f in sorted(st["parts"].items()):
         phase("chroms", f"part {p} ({names[p]}, {ref_lens[p]} b): reads "
               f"{f['read_index_s']:.2f} s index + {f['reads_s']:.2f} s "
-              f"({f['read_records']} records), contigs "
-              f"{f['contig_index_s']:.2f} s index + {f['contigs_s']:.2f} s "
+              f"({f['read_records']} records), contigs on that index "
+              f"{f['contigs_s']:.2f} s "
               f"({f['contig_placements']} placements), contig layer "
               f"{f['contig_layer_s']:.2f} s, k-mer build "
               f"{f['kmer_build_s']:.2f} s ({f['kmer_records']} records), "

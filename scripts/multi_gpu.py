@@ -121,7 +121,7 @@ def rank_run(mesh, size: dict, work: str) -> dict:
             else ["record count"])
 
     every = _subset_pairs(res.records, res.records.ratio_ok(THRESHOLD))
-    cali = ContigAligner(gseq, cfg, index=index, device=dev).align(
+    cali = ContigAligner(gseq, cfg, index=aligner.index, device=dev).align(
         wl["contigs"])
     g0 = GraphTensors.create(genome.part_seq(0))
     build_contig_layer(g0, wl["contigs"], cali)

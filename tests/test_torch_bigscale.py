@@ -199,32 +199,41 @@ def test_enforce_monotone_equals_jax(seed):
 
 
 def test_seed_hits_gather_equals_slices():
-    """_seed_hits gathers each seed's run of the index at once; the runs
-    are those the per-seed slices (the JAX module's form) take."""
+    """The batched seeding (ContigAligner.seed_hits, all queries at once)
+    gathers each seed's run of the index by a ragged expansion; per query
+    the hits are those the per-seed slices (the JAX module's form) take."""
     rng = np.random.default_rng(1)
     g = rng.integers(0, 4, 20_000).astype(np.int8)
     g[5_000:5_400] = g[100:500]                 # repeats: runs of 2+
     al = ca.ContigAligner(g, Config(), device="cpu")
     snp = g[12_000:18_000].copy()
     snp[::20] = (snp[::20] + 1) % 4
-    for seq in (g[3_000:9_000], snp):
-        qpos, tpos = al._seed_hits(seq)
+    sk = al.index.sorted_kmers.numpy()
+    spf = al.index.sorted_posflip.numpy()
+    seqs = [g[3_000:9_000], snp]
+    off, qpos_all, tpos_all = al.seed_hits(seqs)
+    runs = []
+    for i, seq in enumerate(seqs):
+        qpos = qpos_all[off[i]:off[i + 1]]
+        tpos = tpos_all[off[i]:off[i + 1]]
         packed, valid = pack_kmers_np(seq, al.index.seed_len)
         qp = np.arange(0, len(packed), al.stride)
         qp, packed = qp[valid[qp]], packed[qp][valid[qp]]
         rc = rc_packed_np(packed, al.index.seed_len)
         qflip = rc < packed
         pcan = np.where(qflip, rc, packed)
-        lo = np.searchsorted(al._sorted_kmers, pcan, side="left")
-        cnt = np.searchsorted(al._sorted_kmers, pcan, side="right") - lo
+        lo = np.searchsorted(sk, pcan, side="left")
+        cnt = np.searchsorted(sk, pcan, side="right") - lo
         keep = (cnt > 0) & (cnt <= 64)
-        pf = np.concatenate([al._sorted_posflip[a:a + c] for a, c in
+        pf = np.concatenate([spf[a:a + c] for a, c in
                              zip(lo[keep], cnt[keep])])
         fwd = (pf < 0) == np.repeat(qflip[keep], cnt[keep])
         np.testing.assert_array_equal(
             qpos, np.repeat(qp[keep], cnt[keep])[fwd])
         np.testing.assert_array_equal(tpos, (pf & 0x7FFFFFFF)[fwd])
         assert len(qpos) > 0 and qpos.dtype == tpos.dtype == np.int64
+        runs.append(cnt[keep].max())
+    assert runs[0] > 1 and len(off) == 3
 
 
 def script_keys():

@@ -88,8 +88,9 @@ def test_contig_aligner_equals_jax(case, fast_map):
 
 
 def test_shared_index_equals_jax_and_is_not_copied():
-    """run_pipeline's sharing: one host index serves the contig aligner
-    (through numpy views) and the read aligner."""
+    """run_pipeline's sharing: the read aligner's index, already on the
+    aligner's device, serves the contig aligner as it is: its tensors are
+    the ones passed in, no copy and no host view kept."""
     genome, seqs = _large_deletion()
     contigs = contigs_from_arrays(seqs)
     cfg = Config()
@@ -97,10 +98,10 @@ def test_shared_index_equals_jax_and_is_not_copied():
     index = build_index(genome, cfg.seed_len)
     al = ContigAligner(genome, cfg, index=index, device="cpu")
     assert al.index is index
-    assert np.shares_memory(al._sorted_kmers, index.sorted_kmers.numpy())
-    assert np.shares_memory(al._sorted_posflip,
-                            index.sorted_posflip.numpy())
-    np.testing.assert_array_equal(al._sorted_kmers,
+    for f in ("sorted_kmers", "sorted_posflip", "bucket_lo"):
+        assert getattr(al.index, f) is getattr(index, f)
+    assert not {"_sorted_kmers", "_sorted_posflip"} & set(vars(al))
+    np.testing.assert_array_equal(al.index.sorted_kmers.numpy(),
                                   jax_al.index.sorted_kmers_np)
     assert_contig_alignments_equal(al.align(contigs),
                                    jax_al.align(contigs), 1)
@@ -123,11 +124,23 @@ def test_dp_batch_does_not_change_output(dp_batch):
         contigs), 7)
 
 
-def test_rejects_device_index_and_unknown_device():
+def test_rejects_device_index_and_unknown_device(monkeypatch):
+    """An index on a device other than the aligner's raises, a CPU index
+    is moved to the aligner's device once, an unknown device raises."""
     genome, _ = _exact()
     cfg = Config()
-    with pytest.raises(ValueError, match="CPU seed index"):
-        ContigAligner(genome, cfg, index=build_index(genome, 13).to("meta"),
-                      device="cpu")
+    index = build_index(genome, 13)
+    with pytest.raises(ValueError, match="seed index on meta"):
+        ContigAligner(genome, cfg, index=index.to("meta"), device="cpu")
+    # a device with a contig-aligner path other than the index's: "meta"
+    # stands in for the card
+    monkeypatch.setitem(DP_BATCH, "meta", DP_BATCH["cuda"])
+    al = ContigAligner(genome, cfg, index=index, device="meta")
+    for f in ("sorted_kmers", "sorted_posflip", "bucket_lo"):
+        moved = getattr(al.index, f)
+        assert moved.device.type == "meta"
+        assert moved.shape == getattr(index, f).shape
+    assert index.sorted_kmers.device.type == "cpu"
+    monkeypatch.delitem(DP_BATCH, "meta")
     with pytest.raises(ValueError, match="no contig-aligner path"):
         ContigAligner(genome, cfg, device="meta")

@@ -64,6 +64,10 @@ def test_counts_equal_jax_script(tmp_path, capsys):
                                     "copy_wait", "copy_back_host"))
     assert parts <= layers["dp"]
     assert len(rep["walls_s"]) == 1 and rep["index_build_s"] > 0
+    # the batched seeding's counts: every chunk and orientation at once
+    sd = rep["seeding"]
+    assert sd["seeds"] > sd["batches"] == 1 and sd["hits"] > 0
+    assert sd["batch_bytes"] > 0 and "device_peak_bytes" not in sd
     assert (tmp_path / "profile_contig.json").exists()
     # the wrappers are gone again
     assert cal._cluster_and_chain.__name__ == "_cluster_and_chain"
