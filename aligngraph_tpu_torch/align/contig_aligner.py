@@ -31,6 +31,7 @@ time (PERF.md).
 from __future__ import annotations
 
 import bisect
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -312,6 +313,8 @@ class ContigAligner:
         self.dp_batch = DP_BATCH[self.device.type]
         # the last seed_hits call's seeds, hits, batches and batch bytes
         self.seeding: dict = {}
+        # the last align's seconds in _finalize
+        self.finalize_s = 0.0
 
     # ------------------------------------------------------------------
     def seed_hits(self, seqs: List[np.ndarray]):
@@ -360,7 +363,10 @@ class ContigAligner:
                     g0 = int(td[t]) + ts
                     jobs.append((pid, ts, tile, len(piece), g0))
         self._run_tile_jobs(jobs, placements)
-        return self._finalize(placements, contigs)
+        t = time.perf_counter()
+        out = self._finalize(placements, contigs)
+        self.finalize_s = time.perf_counter() - t
+        return out
 
     # ------------------------------------------------------------------
     def _run_tile_jobs(self, jobs, placements):

@@ -1,6 +1,7 @@
-"""The big-genome run: scripts/bigscale_run.py's run (configs 3/4 of
-BASELINE.json: a genome of tens to hundreds of Mb at 20x, cut into parts
-with --part) on the port.
+"""The big-genome run: scripts/bigscale_run.py's run (BASELINE.json
+config 4's path: a genome of tens to hundreds of Mb at 20x, cut into
+parts with --part) on the port.  Config 3, misassembly removal, is
+chip_smoke.py's phase masb (workload.make_misassembly_workload).
 
     python3 -m aligngraph_tpu_torch.bigscale [genome_mb] [depth] [part]
 
@@ -12,7 +13,9 @@ formalizers.  The config is the script's (distance 300-700, --part) with
 graph_build="device" and ratio_check=True.  run_pipeline runs on the
 card, then Eval of extended.fa against the target.
 
-Prints the script's two JSON lines with its keys.  The first adds the
+Prints the script's two JSON lines with its keys.  The first's
+stage_seconds are run_pipeline's stats["stage_seconds"] (with
+misassembly_removal when a config asks for stage (5)); it adds the
 alignment stage's split (the index build, the read and the contig
 threads: stats["alignment_threads"] of run_pipeline) and the run's
 memory: the peak device bytes of the whole run and of each stage, and

@@ -25,6 +25,7 @@ unlike the assembler's chunker).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -33,6 +34,7 @@ from aligngraph_tpu_torch.config import Config
 from aligngraph_tpu_torch.io.fasta import encode, read_fasta
 from aligngraph_tpu_torch.io.formalize import Contigs
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
+from aligngraph_tpu_torch.ops.seeding import SeedIndex, build_index
 
 CUTOFF = 1000      # Eval-AlignGraph.cpp:24
 SIZE = 1_000_000   # Eval-AlignGraph.cpp:25
@@ -93,9 +95,26 @@ def eval_queries(craw) -> Contigs:
                    chunk_len=np.array(chunk_len, np.int64))
 
 
-def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
-             cfg: Optional[Config] = None, *, device) -> Dict[str, float]:
+def genome_index(genome_path, cfg: Optional[Config] = None) -> SeedIndex:
+    """The seed index that evaluate's aligner builds over genome_path's
+    records end to end: built once, it serves several evaluate(...,
+    index=) calls on one genome."""
     cfg = cfg or Config()
+    return build_index(np.concatenate(
+        [encode(s) for s in read_fasta(genome_path)[1]]), cfg.seed_len)
+
+
+def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
+             cfg: Optional[Config] = None, *, device,
+             index: Optional[SeedIndex] = None,
+             stats: Optional[Dict] = None) -> Dict[str, float]:
+    """The metrics of contigs_path's contigs against genome_path.  index,
+    when given, is genome_index(genome_path, cfg) on the device or the
+    CPU.  stats, when given, gets the contig aligner's seconds: index_s
+    (its index build, or the index's upload), align_s and, of it,
+    finalize_s."""
+    cfg = cfg or Config()
+    stats = {} if stats is None else stats
     gids, gseqs = read_fasta(genome_path)
     cids, craw = read_fasta(contigs_path)
     genome_enc = [encode(s) for s in gseqs]
@@ -116,8 +135,15 @@ def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
     gcat = np.concatenate(genome_enc)
     gstart = np.concatenate(
         [[0], np.cumsum([len(s) for s in genome_enc])]).astype(np.int64)
-    ali = ContigAligner(gcat, cfg, accept=(0.0, 0.0, 0),
-                        device=device).align(q)
+    t = time.perf_counter()
+    aligner = ContigAligner(gcat, cfg, index=index, accept=(0.0, 0.0, 0),
+                            device=device)
+    stats["index_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ali = aligner.align(q)
+    stats["align_s"] = time.perf_counter() - t
+    stats["finalize_s"] = aligner.finalize_s
+    del aligner
 
     # E4/E5: per real contig placement lists with conflict resolution
     positions: List[List[Optional[_Pos]]] = [[] for _ in init]

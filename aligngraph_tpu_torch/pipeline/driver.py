@@ -404,7 +404,12 @@ def run_pipeline(cfg: Config,
     stats["formalize_seconds"].
 
     Memory per stage goes to stats["memory"] (_StageMemory): on a CUDA
-    device each stage resets torch.cuda's peak memory statistics."""
+    device each stage resets torch.cuda's peak memory statistics.
+
+    Stage (5), misassembly removal, runs after wall_seconds is taken: its
+    seconds go to stats["stage_seconds"]["misassembly_removal"], and
+    each file's steps and counts (remove_misassembly's stats) to
+    stats["misassembly"]["extended"] and ["remaining"]."""
     t0 = time.time()
     stats: Dict = {}
     mem = _StageMemory(device, stats)
@@ -566,12 +571,18 @@ def run_pipeline(cfg: Config,
         from aligngraph_tpu_torch.pipeline.misassembly import \
             remove_misassembly
         stage_banner(5, "misassembly removal")
+        mem.begin()
+        tst = time.time()
+        masb = stats["misassembly"] = {"extended": {}, "remaining": {}}
         remove_misassembly(cfg.extended_contig, cfg, gseq, reads,
-                           which="extended", device=device)
+                           which="extended", device=device,
+                           stats=masb["extended"])
         remove_misassembly(cfg.remaining_contig, cfg, gseq, reads,
                            which="remaining",
                            chaff=(contigs.chaff_ids, contigs.chaff_seqs),
-                           device=device)
+                           device=device, stats=masb["remaining"])
+        stage_s["misassembly_removal"] = time.time() - tst
+        mem.end("misassembly_removal", reads=reads)
 
     log.info("FINISHED in %.1fs (alignment %.1fs)", out.wall_seconds,
              align_seconds)

@@ -15,6 +15,11 @@ make_multichrom_workload: a genome of several chromosomes (YEAST_R64's
 lengths for BASELINE.json config 2), each with its own reads and draft
 contigs; write_multichrom_fasta writes it as the CLI's inputs.
 
+make_misassembly_workload: make_pipeline_workload's genome, reads and
+drafts with a share of the drafts joined into chimeras of two distant
+drafts and random junk (BASELINE.json config 3); write_misassembly_fasta
+writes it as bigscale.run writes its workload.
+
 make_bigscale_workload: scripts/bigscale_run.py's workload (the same
 generators and order, seed 11), for the big-genome run
 (aligngraph_tpu_torch/bigscale.py).
@@ -132,14 +137,21 @@ def simulate_pe_reads(rng, target, n_pairs, read_len=100, insert=500,
 
 def cut_contigs(rng, target, mean_len=3000, gap_lo=50, gap_hi=400):
     """Draft fragments of the target with insert-bridgeable gaps."""
+    return cut_contigs_at(rng, target, mean_len, gap_lo, gap_hi)[0]
+
+
+def cut_contigs_at(rng, target, mean_len=3000, gap_lo=50, gap_hi=400):
+    """cut_contigs' fragments (the same draws) -> (seqs, homes int64: each
+    fragment's start in the target)."""
     n = len(target)
-    seqs, pos = [], 0
+    seqs, homes, pos = [], [], 0
     while pos + 500 < n:
         ln = max(400, int(rng.normal(mean_len, mean_len // 3)))
         e = min(pos + ln, n)
         seqs.append(target[pos:e])
+        homes.append(pos)
         pos = e + int(rng.integers(gap_lo, gap_hi))
-    return seqs
+    return seqs, np.array(homes, np.int64)
 
 
 def make_pipeline_workload(genome_len=4_600_000, depth=25.0, read_len=100,
@@ -282,6 +294,135 @@ def make_bigscale_workload(genome_len, depth, seed=11, read_len=100):
     contig_seqs): the same generators as make_pipeline_workload, drawn in
     the script's order from seed 11."""
     return make_pipeline_workload(genome_len, depth, read_len, seed)
+
+
+def make_misassembly_workload(genome_len, depth, seed, read_len=100,
+                              insert=500, chimera_frac=0.04,
+                              junk=(300, 600), min_apart=1_000_000,
+                              draft_len=3000):
+    """A genome with chimeric draft contigs, for misassembly removal
+    (BASELINE.json config 3).  make_pipeline_workload's generators in its
+    order: the target, reference = mutate_fast(target), depth *
+    genome_len / (2 * read_len) PE pairs at `insert`, and cut_contigs'
+    drafts of mean length draft_len.  Then round(chimera_frac * drafts /
+    2) chimeras, so that chimera_frac of the cut drafts go into one:
+    chimera k joins draft i, junk[0] to junk[1] random bases and draft j,
+    whose home lies at least min_apart from i's, reverse-complemented in
+    every odd k.  i is drawn among the drafts not yet used, j among those
+    far enough from it.  The chimera takes draft i's place in the list
+    and draft j leaves it, so each region of the target is in one draft.
+    -> dict(target, ref: int8 arrays; data int8 [2n, read_len]
+    mate-interleaved, lens int32 [n]; contigs: list of int8 arrays;
+    homes int64: each draft's start in the target (a chimera's: draft
+    i's); chimera_index int64: each chimera's place in contigs;
+    chimera_homes, chimera_lens int64 [n_chimeras, 2]: the homes and
+    lengths of its drafts i and j; chimera_junk int64: its junk length;
+    chimera_rc bool: draft j reverse-complemented; n_cut: the drafts
+    cut_contigs made).
+
+    The two kinds of chimera are QUAST's misassemblies (Gurevich et al.
+    2013, Bioinformatics 29:1072): the sides of a junction align over 1
+    kb apart on one strand (a relocation: draft j as it is) or on
+    opposite strands (an inversion: draft j reverse-complemented).  The
+    rest has no public source: BASELINE.json config 3 names only a
+    high-coverage PE library and --misassemblyRemoval, and its A.
+    thaliana drafts are not in the repository.  So chimera_frac (4 % of
+    the drafts in a chimera), the one-to-one mix of the two kinds, the
+    junk (300 to 600 bases of unresolved junction sequence) and min_apart
+    (1 Mb, far past QUAST's 1 kb) are assumptions; chimera_outcomes and
+    outcomes_by_strand report the two kinds apart."""
+    n_pairs = int(depth * genome_len / (2 * read_len))
+    rng = np.random.default_rng(seed)
+    target = rng.integers(0, 4, genome_len).astype(np.int8)
+    ref = mutate_fast(rng, target)
+    data, lens = simulate_pe_reads(rng, target, n_pairs, read_len=read_len,
+                                   insert=insert)
+    seqs, homes = cut_contigs_at(rng, target, mean_len=draft_len)
+    n_cut = len(seqs)
+    n_chim = int(round(chimera_frac * n_cut / 2))
+    free = np.ones(n_cut, bool)
+    joins = []                       # (i, j, junk length), in draw order
+    for k in range(n_chim):
+        i = int(rng.choice(np.flatnonzero(free)))
+        free[i] = False
+        far = np.flatnonzero(free & (np.abs(homes - homes[i]) >= min_apart))
+        if len(far) == 0:
+            raise ValueError(f"no draft lies {min_apart} bases from draft "
+                             f"{i}'s home {homes[i]}: lower min_apart")
+        j = int(rng.choice(far))
+        free[j] = False
+        joins.append((i, j, int(rng.integers(junk[0], junk[1] + 1))))
+    chimera_of = {}
+    for k, (i, j, jl) in enumerate(joins):
+        tail = COMP[seqs[j]][::-1] if k % 2 else seqs[j]
+        chimera_of[i] = (k, np.concatenate(
+            [seqs[i], rng.integers(0, 4, jl).astype(np.int8), tail]))
+    gone = {j for _, j, _ in joins}
+    contigs, keep, index = [], [], np.zeros(n_chim, np.int64)
+    for i in range(n_cut):
+        if i in gone:
+            continue
+        if i in chimera_of:
+            k, seq = chimera_of[i]
+            index[k] = len(contigs)
+            contigs.append(seq)
+        else:
+            contigs.append(seqs[i])
+        keep.append(i)
+    return dict(
+        target=target, ref=ref, data=data, lens=lens, contigs=contigs,
+        homes=homes[keep], chimera_index=index,
+        chimera_homes=np.array([(homes[i], homes[j]) for i, j, _ in joins],
+                               np.int64).reshape(-1, 2),
+        chimera_lens=np.array([(len(seqs[i]), len(seqs[j]))
+                               for i, j, _ in joins], np.int64).reshape(-1, 2),
+        chimera_junk=np.array([jl for _, _, jl in joins], np.int64),
+        chimera_rc=np.arange(n_chim) % 2 == 1, n_cut=n_cut)
+
+
+def chimera_outcomes(chimeras, masb: dict, ids: dict) -> list:
+    """How misassembly removal left each generated chimera (its draft id,
+    c{i}), from remove_misassembly's stats per file (masb: {file: stats},
+    their split_ids and whole_safe_ids) and the ids of the files it read
+    (ids: {file: [id, ...]}): "split" when a contig holding the chimera
+    (its id is a word of the contig's id) was cut into parts, "whole"
+    when such a contig was kept whole by the 0.8 rule, "kept" when such a
+    contig came out as one piece otherwise, "absent" when no contig holds
+    it -> one of those a chimera."""
+    words = {"split": set(), "whole": set(), "kept": set()}
+    for which, st in masb.items():
+        for cid in st["split_ids"]:
+            words["split"].update(cid.split())
+        for cid in st["whole_safe_ids"]:
+            words["whole"].update(cid.split())
+        for cid in ids[which]:
+            words["kept"].update(cid.split())
+    return [next((k for k in words if c in words[k]), "absent")
+            for c in chimeras]
+
+
+def outcomes_by_strand(outcomes, rc) -> dict:
+    """chimera_outcomes' list counted apart for the chimeras whose second
+    draft is as it is ("forward", QUAST's relocations) and those whose
+    second draft is reverse-complemented ("rc", inversions)."""
+    return {strand: {k: sum(o == k for o, r in zip(outcomes, rc)
+                            if bool(r) == (strand == "rc"))
+                     for k in ("split", "whole", "kept", "absent")}
+            for strand in ("forward", "rc")}
+
+
+def write_misassembly_fasta(d, wl) -> None:
+    """make_misassembly_workload's output in d as bigscale.run writes its
+    workload: genome.fa (the reference) and target.fa, one record "chr"
+    each, and contigs.fa (draft i named c{i})."""
+    from aligngraph_tpu_torch.io.fasta import decode, write_fasta
+
+    write_fasta(os.path.join(d, "genome.fa"), ["chr"], [decode(wl["ref"])])
+    write_fasta(os.path.join(d, "target.fa"), ["chr"],
+                [decode(wl["target"])])
+    write_fasta(os.path.join(d, "contigs.fa"),
+                [f"c{i}" for i in range(len(wl["contigs"]))],
+                [decode(c) for c in wl["contigs"]])
 
 
 def tile_lanes(rng, B, L=512, pad=16, G=1_000_000, max_indel=6):

@@ -97,8 +97,8 @@ Phases, one line each, any failure raises (non-zero exit):
      built on the device, extended.fa, remaining.fa and the tmp/ stage
      files byte-equal to run_pipeline's; the formalize and CLI walls.
   big: the big-genome run (aligngraph_tpu_torch.bigscale.run, the code
-     path of python3 -m aligngraph_tpu_torch.bigscale) on "cuda" at 32 Mb,
-     20x (3,200,000 pairs), --part 2, seed 11, graph_build="device",
+     path of python3 -m aligngraph_tpu_torch.bigscale) on "cuda" at 16 Mb,
+     20x (1,600,000 pairs), --part 2, seed 11, graph_build="device",
      ratio_check=True, then Eval: walls per stage, peak device memory per
      stage, the k-mer state's bytes (reckoned and allocated), host RSS
      (peak, and per stage its RSS, live heap and named arrays' bytes);
@@ -107,13 +107,13 @@ Phases, one line each, any failure raises (non-zero exit):
      and the k-mer stats equal to the recorded BIG_EVAL and
      BIG_KMER_STATS (identity to 4 places).  Then the
      read aligner on "cuda" against "cpu" on 2,048 pairs at the run's
-     32 Mb index (every field equal), and part 2's device k-mer build (16
-     Mb positions, part_offset 16 Mb; the graph after its contig layer and
+     16 Mb index (every field equal), and part 2's device k-mer build (8
+     Mb positions, part_offset 8 Mb; the graph after its contig layer and
      the records as run_pipeline hands them to the build) against the
      host oracle on the part's first 4 chunks of 16,384 accepted records:
-     all 13 arrays and the stats equal.  Last, apart from the pinned
-     Eval, Eval's contig align on its own query set by profile_contig's
-     layers (index, seed, chain, tile jobs, DP, finalize).
+     all 13 arrays and the stats equal.  (Eval's contig align by
+     profile_contig's layers, eval_align_layers, is no longer run here:
+     call it alone.)
   chroms: BASELINE.json config 2's layout, S. cerevisiae R64's 16
      chromosomes (12,071,326 bases, workload.YEAST_R64; the sequences from
      seed 288, workload.make_multichrom_workload), 20x (1,207,132 pairs of
@@ -130,9 +130,34 @@ Phases, one line each, any failure raises (non-zero exit):
      CHROMS_KMER_STATS; then chrXII's device k-mer build (a late part, a
      non-zero offset) against the host oracle on its first 4 chunks of
      16,384 records: all 13 arrays and the stats equal.
+  masb: BASELINE.json config 3, misassembly removal: a genome of TAIR10
+     Chr1's length (30,427,671 bases, NC_003070.9; seed 3702), 40x
+     (6,085,534 pairs of 100 bp, insert 500), cut_contigs' drafts with 4%
+     of them joined into 188 chimeras (draft + 300-600 random bases +
+     a draft >= 1 Mb away, every second one reverse-complemented: QUAST's
+     relocations and inversions; workload.make_misassembly_workload),
+     after every earlier phase's objects are freed: run_pipeline on
+     "cuda" with misassembly_removal=True, --part 1, the device k-mer
+     build (reads in memory, the rest through FASTA as bigscale.run),
+     then Eval on "cuda", on one target index, of the drafts, of
+     extended.fa + remaining.fa and of corrected_extended.fa +
+     corrected_remaining.fa against the target, each with its aligner's
+     seconds (evaluate's stats): every stage's seconds, stage (5) by file
+     (index, read align, coverage, contig index, contig align, loops,
+     sweep/split; contigs in, kept whole, split, pieces out), peak device
+     and host memory per stage, launches per kernel and L, the ": part"
+     headers and what became of each chimera (split, kept whole, one
+     piece, absent; relocations and inversions apart); the device build,
+     every dropped_* 0, extended > 0, every kernel launched at L 100 and
+     L 512, the drafts' MPMB > 0, the corrected output's below the
+     drafts' and below the uncorrected output's, contigs split > 0, and
+     the Evals, the k-mer stats and the splits equal to MASB_EVAL,
+     MASB_KMER_STATS and MASB_SPLITS.  Then remove_misassembly on a 500
+     kb instance (seed 3703, 100,000 pairs) on "cuda" and on "cpu": the
+     same bytes, with ": part" headers.
 Then a JSON line of per-kernel results (launches: the main paths',
-run_pipeline then Eval at 4.6 Mb, the CLI at 4.6 Mb, then phase big, then
-phase chroms' CLI and Eval),
+run_pipeline then Eval at 4.6 Mb, the CLI at 4.6 Mb, then phase big,
+phase chroms' CLI and Eval, and phase masb's run_pipeline and Evals),
 nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
 """
 
@@ -140,6 +165,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -848,8 +874,11 @@ def seeding_cuda_vs_cpu(ra, gseq, cfg, contigs, index) -> None:
 
 
 def eval_align_layers(genome_path, contigs_path) -> str:
-    """Eval's contig align by layer, run apart from (after) the pinned
-    Eval, which runs unwrapped: Eval's query set (evaluate.eval_queries)
+    """Eval's contig align by layer, apart from any pinned Eval, which
+    runs unwrapped.  No phase calls it (it took ~59 s after phase big's
+    Eval at 32 Mb); run it alone on a run's FASTA files: python3 -c
+    "import chip_smoke as cs; print(cs.eval_align_layers('target.fa',
+    'extended.fa'))".  Eval's query set (evaluate.eval_queries)
     and target (its records end to end), Eval's aligner on "cuda" (its
     seed index build timed) and one profile_contig.layer_align, each
     layer timed, the device synchronised around the seeding and the tile
@@ -1262,23 +1291,27 @@ def cli_full(results: dict, wl: dict, smi: str) -> None:
           f"run's, byte for byte; launches {launches}, lanes {lanes}; {smi}")
 
 
-# phase big: aligngraph_tpu_torch.bigscale at 32 Mb (two 16 Mb parts), 20x
-BIG_MB, BIG_DEPTH, BIG_PART = 32.0, 20.0, 2
+# phase big: aligngraph_tpu_torch.bigscale at 16 Mb (two 8 Mb parts), 20x;
+# cut from 32 Mb so that the smoke with phase masb stays within ~900 s
+BIG_MB, BIG_DEPTH, BIG_PART = 16.0, 20.0, 2
 BIG_CHECK_PAIRS = 2048
-# the big run's product, recorded on the H100 (PERF.md), so that any change
-# shows.  Eval's identity here is 0.9988, under the 0.999 that the 64.4 Mb
-# run (0.99912) and the 4.6 Mb workload (0.9993) reach: it moves with the
-# region (0.9981 to 0.9994 over 1 Mb windows of these contigs), and on the
-# 1-2 Mb window's share of this workload the JAX package writes the port's
+# the big run's product, recorded on the H100 by the first passing run at
+# this size (PERF.md), so that any change shows; None: print it, compare
+# nothing.  Eval's identity: 0.9991 here, 0.9988 at 32 Mb, 0.99912 at
+# 64.4 Mb, 0.9993 on the 4.6 Mb workload; it moves with the region (0.9981
+# to 0.9994 over 1 Mb windows of the 32 Mb run's contigs), and on the 1-2
+# Mb window's share of that workload the JAX package writes the port's
 # contigs byte for byte, at 0.9983 (PERF.md; scripts/eval_windows.py,
 # scripts/bigscale_window.py)
-BIG_EVAL = {"extended": 338, "extended_bases": 31_108_244,
-            "n_contigs": 338, "n_true_contigs": 338, "n50": 148_046,
-            "covered_length": 31_117_580, "mpmb": 0.0,
-            "average_identity": 0.9988}
-BIG_KMER_STATS = {"tuples": 303_645_809, "rows": 607_363_419,
-                  "groups": 306_737_990, "dropped_rank": 0,
+BIG_EVAL = {"extended": 184, "extended_bases": 15_914_481,
+            "n_contigs": 184, "n_true_contigs": 184, "n50": 143_389,
+            "covered_length": 15_919_120, "mpmb": 0.0,
+            "average_identity": 0.9991}
+BIG_KMER_STATS = {"tuples": 151_817_610, "rows": 303_642_462,
+                  "groups": 153_279_450, "dropped_rank": 0,
                   "dropped_slots": 0, "dropped_edges": 0}
+# the Eval figures a phase pins, beside average_identity to 4 places
+EVAL_KEYS = ("n_contigs", "n_true_contigs", "n50", "covered_length", "mpmb")
 
 
 @contextlib.contextmanager
@@ -1359,13 +1392,12 @@ def part_kmer_vs_oracle(name: str, label: str, kept: dict, cfg) -> None:
 def big_genome(results: dict, work: Path, smi: str) -> None:
     """Phase big: bigscale.run on "cuda" (the launches of the big-genome
     path), its invariants, the read aligner on cuda against cpu on
-    BIG_CHECK_PAIRS pairs at the run's 32 Mb index, and part 2's device
+    BIG_CHECK_PAIRS pairs at the run's index, and part 2's device
     k-mer build against the host oracle on the part's first KMER_CHUNKS
     chunks of accepted records (index, graph and records as run_pipeline
     gave them to its aligners and its build: the driver's ReadAligner,
     whose device index the contig aligner shares, and
-    build_kmer_layer_device are wrapped for the run to keep them); then
-    Eval's align by layer (eval_align_layers)."""
+    build_kmer_layer_device are wrapped for the run to keep them)."""
     from aligngraph_tpu_torch import ReadAligner, Reads
     from aligngraph_tpu_torch import bigscale
     from aligngraph_tpu_torch.pipeline import driver
@@ -1433,15 +1465,16 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
                              f"extended contigs")
     got = dict(extended=line1["extended"],
                extended_bases=line1["extended_bases"],
-               **{k: line2[k] for k in BIG_EVAL if k in line2},
-               **line1["kmer_stats"])
-    got["average_identity"] = round(got["average_identity"], 4)
-    if got != {**BIG_EVAL, **BIG_KMER_STATS}:
-        raise AssertionError(f"big: {got} != the recorded "
-                             f"{BIG_EVAL} {BIG_KMER_STATS}")
-    phase("big", eval_align_layers(work / "target.fa", work / "extended.fa"))
+               **{k: line2[k] for k in EVAL_KEYS},
+               average_identity=round(line2["average_identity"], 4))
+    if BIG_EVAL is None or BIG_KMER_STATS is None:
+        phase("big", f"no pins yet: BIG_EVAL = {got}; BIG_KMER_STATS = "
+              f"{ks}")
+    elif (got, ks) != (BIG_EVAL, BIG_KMER_STATS):
+        raise AssertionError(f"big: {got} {ks} != the recorded {BIG_EVAL} "
+                             f"{BIG_KMER_STATS}")
 
-    # the read aligner on cuda against cpu at the run's 32 Mb index
+    # the read aligner on cuda against cpu at the run's index
     cfg, reads, genome = ctx["cfg"], ctx["reads"], ctx["genome"]
     del ctx
     t0 = time.perf_counter()
@@ -1468,7 +1501,8 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
 CHROMS_DEPTH, CHROMS_SEED = 20.0, 288
 CHROMS_KMER_PART = "chrXII"
 # the run's product, recorded on the H100 by the first passing run
-# (PERF.md), kept as BIG_EVAL is kept; None: print it, compare nothing
+# (PERF.md), kept as BIG_EVAL is kept; an entry None: print it, compare
+# the rest
 CHROMS_EVAL = {"extended": 128, "n_contigs": 128, "n_true_contigs": 128,
                "n50": 156_365, "covered_length": 12_020_145, "mpmb": 0.0,
                "average_identity": 0.9989}
@@ -1591,10 +1625,8 @@ def chromosomes(results: dict, work: Path, smi: str) -> None:
             and metrics["n_true_contigs"] >= 0.95 * n_ext):
         raise AssertionError(f"chroms: Eval {metrics} for {n_ext} extended "
                              f"contigs")
-    got_eval = dict(extended=n_ext, **{
-        k: metrics[k] for k in ("n_contigs", "n_true_contigs", "n50",
-                                "covered_length", "mpmb")},
-        average_identity=round(metrics["average_identity"], 4))
+    got_eval = dict(extended=n_ext, **{k: metrics[k] for k in EVAL_KEYS},
+                    average_identity=round(metrics["average_identity"], 4))
     if CHROMS_EVAL is None or CHROMS_KMER_STATS is None:
         phase("chroms", f"no pins yet: CHROMS_EVAL = {got_eval}; "
               f"CHROMS_KMER_STATS = {ks}")
@@ -1604,6 +1636,239 @@ def chromosomes(results: dict, work: Path, smi: str) -> None:
     part_kmer_vs_oracle("chroms", f"part {xii} ({CHROMS_KMER_PART})", kept,
                         Config.from_argv(argv))
     phase("chroms", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase masb: BASELINE.json config 3, misassembly removal over A.
+# thaliana chr1's length (TAIR10 Chr1, NC_003070.9) with chimeric drafts
+MASB_LEN, MASB_DEPTH, MASB_SEED = 30_427_671, 40.0, 3702
+# the card against the CPU: remove_misassembly over a small instance's
+# drafts (homes of a chimera's halves >= 100 kb apart in 500 kb)
+MASB_CHECK = dict(genome_len=500_000, depth=40.0, seed=3703,
+                  min_apart=100_000)
+# the run's product, recorded on the H100 by the first passing run
+# (PERF.md), kept as BIG_EVAL is kept; an entry None: print it, compare
+# the rest
+MASB_EVAL = {
+    "drafts": {"n_contigs": 9028, "n_true_contigs": 9090, "n50": 3363,
+               "covered_length": 27_585_279, "mpmb": 5.872126451927484,
+               "average_identity": 0.9871},
+    "uncorrected": {"n_contigs": 1720, "n_true_contigs": 1782,
+                    "n50": 105_911, "covered_length": 29_801_098,
+                    "mpmb": 5.032631766274879, "average_identity": 0.9881},
+    "corrected": {"n_contigs": 1760, "n_true_contigs": 1782, "n50": 105_425,
+                  "covered_length": 29_818_320, "mpmb": 3.6402836703184374,
+                  "average_identity": 0.9893}}
+MASB_KMER_STATS = {"tuples": 577_458_845, "rows": 1_155_449_911,
+                   "groups": 583_659_817, "dropped_rank": 0,
+                   "dropped_slots": 0, "dropped_edges": 0}
+MASB_SPLITS = {
+    "extended": {"contigs_in": 367, "whole_safe": 367, "contigs_split": 0,
+                 "pieces_out": 367},
+    "remaining": {"contigs_in": 1502, "whole_safe": 1337,
+                  "contigs_split": 42, "pieces_out": 1544},
+    "chimeras": {
+        "forward": {"split": 40, "whole": 9, "kept": 45, "absent": 0},
+        "rc": {"split": 2, "whole": 14, "kept": 78, "absent": 0}}}
+
+
+def masb_cuda_vs_cpu(work: Path) -> str:
+    """remove_misassembly(..., which="remaining", chaff=...) over
+    make_misassembly_workload(**MASB_CHECK)'s drafts on "cuda" and on
+    "cpu": the corrected bytes equal, with at least one ": part"."""
+    from aligngraph_tpu_torch import Config, Reads, formalize_contigs
+    from aligngraph_tpu_torch.pipeline.misassembly import remove_misassembly
+    from aligngraph_tpu_torch.workload import (make_misassembly_workload,
+                                               write_misassembly_fasta)
+
+    work.mkdir()
+    wl = make_misassembly_workload(**MASB_CHECK)
+    write_misassembly_fasta(work, wl)
+    reads = Reads(len(wl["lens"]), wl["data"].shape[1], wl["data"],
+                  wl["lens"])
+    contigs = formalize_contigs(work / "contigs.fa")
+    cfg = Config(distance_low=300, distance_high=700)
+    out, walls, st = [], [], []
+    for dev in ("cuda", "cpu"):
+        st.append({})
+        t0 = time.perf_counter()
+        path = remove_misassembly(
+            str(work / "contigs.fa"), cfg, wl["ref"], reads,
+            which="remaining", chaff=(contigs.chaff_ids, contigs.chaff_seqs),
+            out_path=str(work / f"corrected_{dev}.fa"), device=dev,
+            stats=st[-1])
+        walls.append(time.perf_counter() - t0)
+        out.append(Path(path).read_bytes())
+    parts = out[0].count(b" : part")
+    if out[0] != out[1] or not parts:
+        raise AssertionError(f"masb: remove_misassembly on cuda != cpu "
+                             f"({len(out[0])} and {len(out[1])} bytes) or "
+                             f"no part ({parts})")
+    return (f"remove_misassembly at {MASB_CHECK['genome_len']} bases, "
+            f"{len(wl['lens'])} pairs, {contigs.n_real} drafts "
+            f"({len(wl['chimera_index'])} chimeras): cuda == cpu, "
+            f"{len(out[0])} bytes, {parts} ': part' headers, "
+            f"{st[0]['contigs_split']} split, {st[0]['whole_safe']} kept "
+            f"whole; cuda {walls[0]:.2f} s, cpu {walls[1]:.2f} s")
+
+
+def misassembly_phase(results: dict, work: Path, smi: str) -> None:
+    """Phase masb: BASELINE.json config 3 on "cuda".  run_pipeline with
+    misassembly_removal=True on make_misassembly_workload(MASB_LEN,
+    MASB_DEPTH, MASB_SEED) (the reads in memory; genome, target and
+    drafts through FASTA and the formalizers, as bigscale.run), --part 1,
+    the device k-mer build; then Eval on "cuda", on one target index, of
+    the drafts, of the uncorrected output (extended.fa then
+    remaining.fa, one file) and of the corrected one
+    (corrected_extended.fa then corrected_remaining.fa) against the
+    target.  Prints the stages, stage (5) by file, memory, the ": part"
+    headers and what became of the chimeras, relocations and inversions
+    apart; checks the invariants (the corrected output's MPMB below both
+    the drafts' and the uncorrected output's) and the pins MASB_EVAL,
+    MASB_KMER_STATS, MASB_SPLITS; then masb_cuda_vs_cpu."""
+    import resource
+
+    from aligngraph_tpu_torch import (Config, Reads, formalize_contigs,
+                                      formalize_genome)
+    from aligngraph_tpu_torch.bigscale import check_state_fits
+    from aligngraph_tpu_torch.evaluate.evaluate import evaluate, genome_index
+    from aligngraph_tpu_torch.io.fasta import read_fasta
+    from aligngraph_tpu_torch.pipeline.driver import run_pipeline
+    from aligngraph_tpu_torch.workload import (chimera_outcomes,
+                                               make_misassembly_workload,
+                                               outcomes_by_strand,
+                                               write_misassembly_fasta)
+
+    t_phase = time.perf_counter()
+    work.mkdir()
+    wl = make_misassembly_workload(MASB_LEN, MASB_DEPTH, MASB_SEED)
+    write_misassembly_fasta(work, wl)
+    reads = Reads(len(wl["lens"]), wl["data"].shape[1], wl["data"],
+                  wl["lens"])
+    chimeras = [f"c{i}" for i in wl["chimera_index"]]
+    chimera_rc = wl["chimera_rc"]
+    n_cut, n_drafts = wl["n_cut"], len(wl["contigs"])
+    del wl
+    cfg = Config(read1="-", read2="-", contig=str(work / "contigs.fa"),
+                 genome=str(work / "genome.fa"), distance_low=300,
+                 distance_high=700, part=1, misassembly_removal=True,
+                 graph_build="device",
+                 extended_contig=str(work / "extended.fa"),
+                 remaining_contig=str(work / "remaining.fa"),
+                 work_dir=str(work / "tmp"))
+    contigs = formalize_contigs(cfg.contig)
+    genome = formalize_genome(cfg.genome, cfg.part)
+    need = check_state_fits(genome.part_len, "cuda")
+    phase("masb", f"{MASB_LEN} bases, {MASB_DEPTH:g}x: {reads.n_pairs} "
+          f"pairs, {n_cut} drafts cut, {n_drafts} after the joins, "
+          f"{len(chimeras)} chimeras ({contigs.n_real} over 200 bp); k-mer "
+          f"state {max(need) / 2**30:.2f} GiB; set-up "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    res, launches, lanes, by_l = counted(
+        lambda: run_pipeline(cfg, reads=reads, contigs=contigs,
+                             genome=genome, device="cuda"))
+    wall = time.perf_counter() - t0
+    del reads, contigs, genome
+    require_launched("masb", launches, by_l, results)
+    st = res.stats
+    stage = st["stage_seconds"]
+    phase("masb", f"run_pipeline {res.wall_seconds:.2f} s + stage (5) "
+          f"{stage['misassembly_removal']:.2f} s (call {wall:.2f} s); "
+          f"stages " + ", ".join(f"{k} {v:.2f}" for k, v in stage.items())
+          + "; alignment threads " + ", ".join(
+              f"{k} {v:.2f}" for k, v in st["alignment_threads"].items())
+          + f"; read records {st['read_alignments']}, contig placements "
+          f"{st['contig_placements']}; {smi}")
+    for which, f in st["misassembly"].items():
+        phase("masb", f"stage (5) {which}: " + ", ".join(
+            f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in f.items() if not k.endswith("_ids")))
+    mem = {k: dict(dev=round(v.get("device_peak_bytes", 0) / 2**30, 2),
+                   rss=round(v["host_rss_bytes"] / 1e9, 2),
+                   max_rss=round(v["host_max_rss_bytes"] / 1e9, 2))
+           for k, v in st["memory"].items()}
+    phase("masb", f"peak device GiB, host RSS and peak RSS GB by stage: "
+          f"{mem}; launches {launches}, lanes {lanes}")
+
+    # the uncorrected output (extended.fa then remaining.fa) and the
+    # corrected one, each in one file
+    headers = {w: (work / f"corrected_{w}.fa").read_bytes().count(b" : part")
+               for w in ("extended", "remaining")}
+    for name, pre in (("uncorrected", ""), ("corrected", "corrected_")):
+        with open(work / f"{name}_all.fa", "wb") as f:
+            for w in ("extended", "remaining"):
+                f.write((work / f"{pre}{w}.fa").read_bytes())
+    t0 = time.perf_counter()
+    index = genome_index(work / "target.fa").to("cuda")
+    phase("masb", f"Eval's target index, built once for the three Evals: "
+          f"{time.perf_counter() - t0:.2f} s")
+    evals, e_launches = {}, {n: 0 for n in results}
+    for name, path in (("drafts", work / "contigs.fa"),
+                       ("uncorrected", work / "uncorrected_all.fa"),
+                       ("corrected", work / "corrected_all.fa")):
+        t0, es = time.perf_counter(), {}
+        m, el, _, e_by_l = counted(
+            lambda: evaluate(work / "target.fa", path, device="cuda",
+                             index=index, stats=es))
+        require_launched(f"masb_eval_{name}", el, e_by_l, results)
+        for n in results:
+            e_launches[n] += el[n]
+        evals[name] = {**{k: m[k] for k in EVAL_KEYS},
+                       "average_identity": round(m["average_identity"], 4)}
+        phase("masb", f"Eval of the {name} {time.perf_counter() - t0:.2f} s "
+              f"(upload {es['index_s']:.2f}, align {es['align_s']:.2f}, of "
+              f"it _finalize {es['finalize_s']:.2f}): {m}; {smi}")
+    del index
+    for n, r in results.items():
+        r["launches"] += launches[n] + e_launches[n]
+
+    outs = chimera_outcomes(
+        chimeras, st["misassembly"],
+        {w: read_fasta(work / f"{w}.fa")[0] for w in st["misassembly"]})
+    splits = {which: {k: f[k] for k in ("contigs_in", "whole_safe",
+                                        "contigs_split", "pieces_out")}
+              for which, f in st["misassembly"].items()}
+    splits["chimeras"] = by = outcomes_by_strand(outs, chimera_rc)
+    phase("masb", f"': part' headers: {headers}; of {len(chimeras)} "
+          f"chimeras (split; kept whole: a placement over >= 0.8 of the "
+          f"contig; kept in one piece otherwise; in no output), the "
+          f"{sum(by['forward'].values())} relocations (second draft as it "
+          f"is) {by['forward']}, the {sum(by['rc'].values())} inversions "
+          f"(second draft reverse-complemented) {by['rc']}; splits "
+          f"{splits}; max RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} "
+          f"GB")
+
+    ks = st["kmer_build"]
+    bad = {k: v for k, v in ks.items() if k.startswith("dropped_") and v}
+    n_split = sum(f["contigs_split"] for f in st["misassembly"].values())
+    if st["graph_build"] != "device" or bad or not res.extended_ids:
+        raise AssertionError(f"masb: k-mer build {st['graph_build']}, "
+                             f"dropped {bad}, extended "
+                             f"{len(res.extended_ids)}")
+    need_l = {f"{k} L{L}" for k in KERNEL_NAMES for L in (L_MAIN, L_TILE)}
+    if not need_l <= set(by_l):
+        raise AssertionError(f"masb: kernels not launched at L 100 and "
+                             f"L 512: {sorted(need_l - set(by_l))}")
+    d_mpmb, u_mpmb, c_mpmb = (evals[k]["mpmb"] for k in
+                              ("drafts", "uncorrected", "corrected"))
+    if not (d_mpmb > 0 and c_mpmb < d_mpmb and c_mpmb < u_mpmb
+            and n_split > 0):
+        raise AssertionError(f"masb: MPMB drafts {d_mpmb}, uncorrected "
+                             f"{u_mpmb}, corrected {c_mpmb}, contigs split "
+                             f"{n_split}")
+    unpinned = {k: evals[k] for k, v in MASB_EVAL.items() if v is None}
+    if unpinned:
+        phase("masb", f"no pin yet: MASB_EVAL entries {unpinned}")
+    pinned = {k: v for k, v in MASB_EVAL.items() if v is not None}
+    if ({k: evals[k] for k in pinned}, ks, splits) != (
+            pinned, MASB_KMER_STATS, MASB_SPLITS):
+        raise AssertionError(f"masb: {evals} {ks} {splits} != the recorded "
+                             f"{MASB_EVAL} {MASB_KMER_STATS} {MASB_SPLITS}")
+    del res
+    phase("masb", masb_cuda_vs_cpu(work / "check"))
+    phase("masb", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1655,6 +1920,11 @@ def main() -> int:
         big_genome(results, Path(tmp) / "big", smi)
     with tempfile.TemporaryDirectory() as tmp:
         chromosomes(results, Path(tmp) / "chroms", smi)
+    # every earlier phase's objects are gone before the largest run
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        misassembly_phase(results, Path(tmp) / "masb", smi)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)
