@@ -112,7 +112,8 @@ def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
     when given, is genome_index(genome_path, cfg) on the device or the
     CPU.  stats, when given, gets the contig aligner's seconds: index_s
     (its index build, or the index's upload), align_s and, of it,
-    finalize_s."""
+    finalize_s, split by step in finalize_split; and _finalize's counts,
+    finalize_counts (contig_aligner.finalize_placements)."""
     cfg = cfg or Config()
     stats = {} if stats is None else stats
     gids, gseqs = read_fasta(genome_path)
@@ -142,7 +143,9 @@ def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
     t = time.perf_counter()
     ali = aligner.align(q)
     stats["align_s"] = time.perf_counter() - t
-    stats["finalize_s"] = aligner.finalize_s
+    stats.update(finalize_s=aligner.finalize_s,
+                 finalize_split=aligner.finalize_split,
+                 finalize_counts=aligner.finalize_counts)
     del aligner
 
     # E4/E5: per real contig placement lists with conflict resolution

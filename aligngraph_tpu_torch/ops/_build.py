@@ -2,7 +2,8 @@
 
 At first use, `nvcc` compiles every source under csrc/ into one shared
 library with a plain C interface, in aligngraph_tpu_torch/_build/ (listed
-in .gitignore).  The library's name carries a hash of the sources and the
+in .gitignore): one nvcc process a source, all started together, then
+one link.  The library's name carries a hash of the sources and the
 flags, so an edited source is rebuilt and a stale library is never loaded.
 The library is loaded with ctypes; every entry point's argument types are
 declared here (c_void_p for pointers and the stream, c_int for ints).
@@ -24,7 +25,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,9 @@ ARGTYPES = {
     # tb, best_i, best_b, g0, pos_map, B, L, W, pad, max_steps, device,
     # stream
     "ag_sw_traceback": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # t0, t1, w, offsets, best, parent, trim, keep, n_placements, max_m,
+    # device, stream
+    "ag_monotone_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -68,6 +72,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libag_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Runs the commands side by side; raises with the first failure's
+    output once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu with nvcc unless the library for these sources
     exists; returns its path."""
@@ -75,13 +92,19 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    srcs = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    nvcc = _nvcc()
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                  for src, o in zip(srcs, objs)])
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)     # atomic: a concurrent loader sees all or none
     return out
 

@@ -155,8 +155,8 @@ def _placements(contigs: Contigs, genome_codes: np.ndarray, cfg: Config,
                 cov: List[np.ndarray], device,
                 stats: Dict) -> List[List[_CPos]]:
     """Step 3: de-chunked contig->genome placements with splits; the index
-    build's, the align's and the loops' seconds and the placements go to
-    stats."""
+    build's, the align's (and of it _finalize's, by step) and the loops'
+    seconds, the placements and _finalize's counts go to stats."""
     positions: List[List[_CPos]] = [[] for _ in range(contigs.n_real)]
     if contigs.n_real == 0:
         return positions
@@ -167,11 +167,17 @@ def _placements(contigs: Contigs, genome_codes: np.ndarray, cfg: Config,
     index = build_index(np.asarray(genome_codes, np.int8), cfg.seed_len)
     stats["contig_index_s"] = time.time() - t
     t = time.time()
-    ali = ContigAligner(genome_codes, cfg, index=index, max_join_gap=2000,
-                        accept=(0.0, 0.0, 0), device=device).align(contigs)
+    aligner = ContigAligner(genome_codes, cfg, index=index,
+                            max_join_gap=2000, accept=(0.0, 0.0, 0),
+                            device=device)
+    ali = aligner.align(contigs)
     del index
     stats["contigs_s"] = time.time() - t
     stats["placements"] = ali.n
+    stats.update(finalize_s=aligner.finalize_s,
+                 finalize_split=aligner.finalize_split,
+                 finalize_counts=aligner.finalize_counts)
+    del aligner
     t = time.time()
     for r in range(ali.n):
         chunk = int(ali.chunk_id[r])
@@ -315,7 +321,9 @@ def remove_misassembly(file_path: str, cfg: Config,
 
     stats, when given, gets the seconds of each step (index_s, reads_s,
     coverage_s, contig_index_s, contigs_s, placement_loops_s,
-    sweep_split_s), the read records and the placements, and the counts:
+    sweep_split_s), of the contig align's _finalize (finalize_s) and of
+    its steps (finalize_split), the read records, the placements and
+    _finalize's counts (finalize_counts), and the counts:
     contigs_in (the contigs over 200 bp), whole_safe (kept whole: a
     placement covers >= 0.8 of it), contigs_split (written as two or more
     ": part<N>" pieces), pieces_out (the records written before the

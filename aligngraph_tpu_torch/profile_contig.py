@@ -23,18 +23,25 @@ that loads the kernels), then:
                      less every other layer
        dp            _run_tile_jobs, replaced on the instance by
                      run_tile_jobs_timed, a copy of its loop with a clock
-                     between its four parts (held to the module's
+                     between its three parts (held to the module's
                      pos_map bytes by tests/test_torch_profile_contig.py):
-         windows_host     the batch's tiles, lengths, g0 and genome
-                          windows built on the host
+         windows_host     the batch's tiles, lengths, g0, destinations
+                          and genome windows built on the host
          dp_device        their upload and banded_sw_posmap_auto, the
                           device synchronised before and after
-         copy_wait        pm_d.cpu(): the position maps to the host
-         copy_back_host   the per-job copy into each placement's pos_map
-       finalize      ContigAligner._finalize (the instance's, wrapped)
+         scatter          the position maps into the placements' buffer
+                          on the device (Placements.scatter_tiles)
+       finalize      ContigAligner._finalize (the instance's, wrapped,
+                     the device synchronised around it): the placements
+                     finalized on the device; its split by step
+                     (contig_aligner.FINALIZE_STEPS) and counts are the
+                     layer run's "finalize_split" and "finalize_counts",
+                     and on CUDA the peak device bytes allocated during
+                     it above what was allocated before it
+                     "finalize_peak_bytes"
   2. walls: `reps` aligns with no wrapper; the kernels' launches and
-     lanes by kernel and L (banded_sw_cuda.launches_by_length) over the
-     first.
+     lanes by kernel and L (banded_sw_cuda.launches_by_length), and the
+     chain DP's launches and placements ("chain"), over the first.
   3. on CUDA, one align under torch.profiler
      (profile_align.device_profile): device busy time, idle share and
      peak device memory; the ops by device time to
@@ -67,7 +74,7 @@ import torch
 from aligngraph_tpu_torch.align import contig_aligner as cal
 from aligngraph_tpu_torch.config import Config
 from aligngraph_tpu_torch.io.formalize import Contigs
-from aligngraph_tpu_torch.ops import banded_sw_cuda
+from aligngraph_tpu_torch.ops import banded_sw_cuda, monotone_chain
 from aligngraph_tpu_torch.profile_align import device_profile
 from aligngraph_tpu_torch.workload import cut_contigs, mutate_fast
 
@@ -75,7 +82,7 @@ from aligngraph_tpu_torch.workload import cut_contigs, mutate_fast
 WARM_CONTIGS = 16
 # the layers of one align, in the order they are printed
 LAYERS = ("seed", "chain", "tile_jobs", "dp", "windows_host", "dp_device",
-          "copy_wait", "copy_back_host", "finalize")
+          "scatter", "finalize")
 
 
 def make_contigs(seqs) -> Contigs:
@@ -104,8 +111,8 @@ def _sync(device: torch.device) -> None:
 
 def run_tile_jobs_timed(ca, jobs, placements, totals: dict) -> None:
     """ContigAligner._run_tile_jobs(jobs, placements) on ca, line for line,
-    with the seconds of each of its four parts added to totals
-    (windows_host, dp_device, copy_wait, copy_back_host)."""
+    with the seconds of each of its three parts added to totals
+    (windows_host, dp_device, scatter)."""
     G = len(ca.genome_np)
     W = 2 * cal.TILE_PAD
     bs = ca.dp_batch
@@ -116,31 +123,30 @@ def run_tile_jobs_timed(ca, jobs, placements, totals: dict) -> None:
         tiles = np.full((bs, cal.TILE), 4, np.int8)
         tlens = np.zeros(bs, np.int32)
         g0s = np.zeros(bs, np.int32)
+        dst = np.zeros(bs, np.int64)
         for k, (pid, ts, tile, plen, g0) in enumerate(blk):
             tiles[k] = tile
             tlens[k] = plen
             g0s[k] = np.clip(g0, -(2**30), 2**30)
+            dst[k] = placements.off[pid] + ts
         x = g0s[:, None] - cal.TILE_PAD + np.arange(cal.TILE + W)[None, :]
         ok = (x >= 0) & (x < G)
         windows = np.where(ok, ca.genome_np[np.clip(x, 0, G - 1)],
                            np.int8(4))
         _sync(dev)
         t1 = time.perf_counter()
-        _, pm_d = cal.banded_sw_posmap_auto(
-            *(torch.from_numpy(a).to(dev)
-              for a in (tiles, tlens, windows, g0s)), pad=cal.TILE_PAD)
+        tiles_d, tlens_d, windows_d, g0s_d, dst_d = (
+            torch.from_numpy(a).to(dev)
+            for a in (tiles, tlens, windows, g0s, dst))
+        _, pm_d = cal.banded_sw_posmap_auto(tiles_d, tlens_d, windows_d,
+                                            g0s_d, pad=cal.TILE_PAD)
         _sync(dev)
         t2 = time.perf_counter()
-        pm = pm_d.cpu().numpy()
+        placements.scatter_tiles(pm_d, dst_d, tlens_d)
+        _sync(dev)
         t3 = time.perf_counter()
-        for k, (pid, ts, tile, plen, g0) in enumerate(blk):
-            seg = pm[k, :plen]
-            dst = placements[pid]["pos_map"][ts:ts + plen]
-            np.copyto(dst, seg, where=seg >= 0)
-        t4 = time.perf_counter()
         for name, a, b in (("windows_host", t0, t1), ("dp_device", t1, t2),
-                           ("copy_wait", t2, t3),
-                           ("copy_back_host", t3, t4)):
+                           ("scatter", t2, t3)):
             totals[name] += b - a
 
 
@@ -154,8 +160,12 @@ def timed_align(ca, contigs, device):
 
 def layer_align(ca, contigs, device) -> tuple:
     """One align with every layer timed -> (ContigAlignments, wall,
-    {layer: seconds}).  The wrappers are gone again on return."""
+    {layer: seconds}, finalize) with finalize = the align's
+    ca.finalize_split ("split") and ca.finalize_counts ("counts") and, on
+    CUDA, "peak_bytes": the peak allocated during _finalize less what was
+    allocated before it.  The wrappers are gone again on return."""
     totals = {name: 0.0 for name in LAYERS}
+    fin: dict = {}
 
     def clocked(fn, name, sync):
         def timed(*args, **kwargs):
@@ -172,20 +182,34 @@ def layer_align(ca, contigs, device) -> tuple:
     def jobs(j, p):
         run_tile_jobs_timed(ca, j, p, totals)
 
+    finalize = clocked(ca._finalize, "finalize", True)
+
+    def finalize_peak(p, c):
+        if device.type != "cuda":
+            return finalize(p, c)
+        _sync(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = finalize(p, c)
+        fin["peak_bytes"] = torch.cuda.max_memory_allocated(device) - base
+        return out
+
     chain = cal._cluster_and_chain
     cal._cluster_and_chain = clocked(chain, "chain", False)
     ca.seed_hits = clocked(ca.seed_hits, "seed", True)
     ca._run_tile_jobs = clocked(jobs, "dp", True)
-    ca._finalize = clocked(ca._finalize, "finalize", False)
+    ca._finalize = finalize_peak
     try:
         res, wall = timed_align(ca, contigs, device)
     finally:
         cal._cluster_and_chain = chain
         for name in ("seed_hits", "_run_tile_jobs", "_finalize"):
             del ca.__dict__[name]
+    fin.update(split=dict(ca.finalize_split),
+               counts=dict(ca.finalize_counts))
     totals["tile_jobs"] = wall - sum(totals[k] for k in
                                      ("seed", "chain", "dp", "finalize"))
-    return res, wall, totals
+    return res, wall, totals, fin
 
 
 def measure_seeding(ca, segs, device) -> tuple:
@@ -240,15 +264,19 @@ def main(argv=None) -> dict:
     report = dict(mb=args.mb, device=str(device), contigs=len(seqs),
                   genome_len=len(reference), setup_s=setup_s,
                   index_build_s=index_s, layers=[], layer_walls_s=[],
-                  walls_s=[])
+                  finalize_split=[], finalize_peak_bytes=[], walls_s=[])
     if device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(device)
     for rep in range(args.reps):
-        res, wall, totals = layer_align(ca, contigs, device)
+        res, wall, totals, fin = layer_align(ca, contigs, device)
         report["layers"].append(totals)
         report["layer_walls_s"].append(wall)
+        report["finalize_split"].append(fin["split"])
+        if "peak_bytes" in fin:
+            report["finalize_peak_bytes"].append(fin["peak_bytes"])
         if rep == 0:
             report["placements"] = res.n
+            report["finalize_counts"] = fin["counts"]
             st = totals
             # the JAX script's two lines: its dp is _run_tile_jobs, its
             # other the tile-job assembly
@@ -260,12 +288,19 @@ def main(argv=None) -> dict:
                   f"other={st['tile_jobs']:.1f}s", flush=True)
         print("layers", round(wall, 4),
               {k: round(v, 4) for k, v in totals.items()}, flush=True)
+        print("finalize split", {k: round(v, 4)
+                                 for k, v in fin["split"].items()},
+              "counts", fin["counts"], "peak bytes",
+              fin.get("peak_bytes"), flush=True)
     for rep in range(args.reps):
         banded_sw_cuda.reset_launches()
+        monotone_chain.reset_launches()
         res, wall = timed_align(ca, contigs, device)
         if rep == 0:
-            report["launches_by_length"] = \
-                banded_sw_cuda.launches_by_length()
+            report["launches_by_length"] = dict(
+                banded_sw_cuda.launches_by_length(),
+                chain={"launches": monotone_chain.LAUNCHES["chain"],
+                       "lanes": monotone_chain.LANES["chain"]})
         if res.n != report["placements"]:
             raise AssertionError(f"align gave {res.n} placements, the "
                                  f"layer run {report['placements']}")

@@ -5,8 +5,9 @@
 Phases, one line each, any failure raises (non-zero exit):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit, the SM count and the maximum SM clock.
-  2. build: compiles aligngraph_tpu_torch/csrc/*.cu with nvcc (sm_90a) and
-     the C++ traversal and FASTA parser with g++, all into
+  2. build: compiles aligngraph_tpu_torch/csrc/*.cu with nvcc (sm_90a; one
+     process a source, side by side, then one link) and the C++
+     traversal, FASTA parser and chain DP with g++, all into
      aligngraph_tpu_torch/_build/.
   3. kernels: each hand-written kernel against its plain PyTorch version
      on the same CUDA tensors, at the read aligner's shapes (L 100, pad 16,
@@ -20,6 +21,11 @@ Phases, one line each, any failure raises (non-zero exit):
      is checked at every shape; the score layouts are timed at L 100 and
      L 512 (SCORE_SWEEP), the dp layouts and the traceback at the lanes a
      launch carries on the paths and at full batches (DP_SWEEP).
+     Then the contig aligner's chain DP kernel (monotone_chain_kernel)
+     against monotone_chain_plain on 400 placements of 2-64 blocks, on
+     placements of 1,024, 8,192 (the last held in shared memory), 8,193
+     and 50,000 blocks and on a batch built for ties and zero kept
+     weight: best, parent, trim and keep equal.
      Everything is integer: tolerance 0.  CUDA-event times, kernel vs
      plain, and each kernel's bound (bytes or operations on these inputs)
      per shape.
@@ -152,9 +158,14 @@ Phases, one line each, any failure raises (non-zero exit):
      L 512, the drafts' MPMB > 0, the corrected output's below the
      drafts' and below the uncorrected output's, contigs split > 0, and
      the Evals, the k-mer stats and the splits equal to MASB_EVAL,
-     MASB_KMER_STATS and MASB_SPLITS.  Then remove_misassembly on a 500
-     kb instance (seed 3703, 100,000 pairs) on "cuda" and on "cpu": the
-     same bytes, with ": part" headers.
+     MASB_KMER_STATS and MASB_SPLITS; the chain DP kernel launched in
+     the run and in each Eval, and its largest launch there (the most
+     (i, j) pairs) held against the plain version and timed (the
+     kernel's figures in the JSON line).  Then remove_misassembly on a
+     500 kb instance (seed 3703, 100,000 pairs) on "cuda" and on "cpu":
+     the same bytes, with ": part" headers.
+The chain DP kernel must launch on the paths that align long contigs:
+Eval at 4.6 Mb, phase big, and phase masb's run and Evals.
 Then a JSON line of per-kernel results (launches: the main paths',
 run_pipeline then Eval at 4.6 Mb, the CLI at 4.6 Mb, then phase big,
 phase chroms' CLI and Eval, and phase masb's run_pipeline and Evals),
@@ -195,6 +206,15 @@ REPLACES = {
 }
 KERNEL_NAMES = {"score": "sw_score_kernel", "dp": "sw_dp_kernel",
                 "traceback": "sw_traceback_kernel"}
+# the contig aligner's chain DP: no Pallas kernel computes it (the JAX
+# package runs the loop on the host, at this line)
+CHAIN = {"name": "monotone_chain_kernel", "route": "cuda",
+         "source": "aligngraph_tpu_torch/csrc/monotone_chain.cu",
+         "replaces": "aligngraph_tpu/align/contig_aligner.py:185"}
+# the banded kernels every path launches; the paths that align long
+# contigs launch the chain DP too (require_launched's `need`)
+BANDED = tuple(KERNEL_NAMES)
+WITH_CHAIN = BANDED + ("chain",)
 
 
 def phase(name: str, msg: str) -> None:
@@ -318,14 +338,16 @@ def kernel_bounds(card, reads, rlens, W, best_i, pm) -> dict:
 
 def kernel_results() -> dict:
     """The per-kernel entries of the JSON line, before any phase ran."""
-    return {n: {"name": KERNEL_NAMES[n], "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[n], "launches": 0, "max_abs_err": 0,
-                "ms": None, "plain_ms": None, "bound_ms": None,
-                "bound_by": None,
-                # no PyTorch call computes a banded affine-gap local DP or
-                # its traceback
-                "library_ms": None, "launches_by_path": {}, "shapes": {}}
-            for n in ("score", "dp", "traceback")}
+    out = {n: {"name": KERNEL_NAMES[n], "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[n]} for n in BANDED}
+    out["chain"] = dict(CHAIN)
+    for r in out.values():
+        # no PyTorch call computes a banded affine-gap local DP, its
+        # traceback or the chain DP
+        r.update(launches=0, max_abs_err=0, ms=None, plain_ms=None,
+                 bound_ms=None, bound_by=None, library_ms=None,
+                 launches_by_path={}, shapes={})
+    return out
 
 
 # lanes the score kernel's layouts are timed at, by shape
@@ -500,7 +522,8 @@ def check_kernels(results: dict, card: dict) -> None:
         for label, by_cells in dp_cells_ms.items()}
     for name, by_label in sweep.items():
         results[name]["sweep"] = by_label
-    for n, r in results.items():
+    for n in BANDED:
+        r = results[n]
         main = r["shapes"]["L100 pad16"]
         for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
             r[key] = main[key]
@@ -512,31 +535,171 @@ def check_kernels(results: dict, card: dict) -> None:
                   f"{t['bound_ms'] / t['ms']:.3f} of it")
 
 
+# integer operations per (i, j) pair of the chain DP, each on int64: the
+# overlap, its clamp, the kept weight, its test, the gain, its select, the
+# compare with the running best and the two selects of (gain, j).  Counted
+# at the card's int32 rate: an int64 operation takes at least one int32
+# instruction, so the bound stays a floor.
+CHAIN_OPS_PER_PAIR = 9
+# blocks a CTA of the chain kernel keeps in shared memory
+# (csrc/monotone_chain.cu: kSmemBlocks)
+CHAIN_SMEM_BLOCKS = 8192
+# the shape whose figures stand for the kernel in the JSON line: the
+# largest launch of phase masb's main path
+CHAIN_MAIN = "masb's largest launch"
+
+
+def chain_blocks(rng, sizes, spread=None, back=0.1):
+    """A CSR batch of M-blocks as finalize_placements hands them to the
+    chain DP: per placement of m blocks, targets from a sorted draw over
+    `spread` (40 m by default; a narrow one makes equal gains) plus
+    noise, weights 1..59, and a `back` share overlapping the block before
+    by up to 120 (kept weight <= 0 for some).  -> CUDA int64 (t0, t1, w,
+    offsets)."""
+    t0s, ws = [], []
+    for m in sizes:
+        t0 = (np.sort(rng.integers(0, spread or 40 * m, m))
+              + rng.integers(0, 600, m))
+        w = rng.integers(1, 60, m)
+        b = np.flatnonzero(rng.random(m) < back)
+        b = b[b > 0]
+        t0[b] = np.maximum(t0[b - 1] + w[b - 1] - rng.integers(0, 120,
+                                                               len(b)), 0)
+        t0s.append(t0)
+        ws.append(w)
+    t0 = np.concatenate(t0s).astype(np.int64)
+    w = np.concatenate(ws).astype(np.int64)
+    off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    return tuple(torch.from_numpy(a).cuda() for a in (t0, t0 + w, w, off))
+
+
+def chain_bound(card, off) -> dict:
+    """The chain DP's bound on a batch: sum m(m-1)/2 pairs of
+    CHAIN_OPS_PER_PAIR operations; t0, t1, w and the offsets read,
+    best, parent, trim and keep written (49 bytes a block)."""
+    m = (off[1:] - off[:-1]).double()
+    pairs = float((m * (m - 1) / 2).sum())
+    n = int(off[-1])
+    return bound(card, pairs * CHAIN_OPS_PER_PAIR,
+                 49 * n + 8 * off.numel())
+
+
+def time_chain(results: dict, card: dict, label: str, t0, t1, w,
+               off) -> None:
+    """monotone_chain_kernel against monotone_chain_plain on one batch:
+    best, parent, trim and keep equal (tolerance 0, integers); the
+    kernel's CUDA-event ms, the plain version's (one run: each of its
+    steps is several small launches) and the bound go to
+    results["chain"]["shapes"][label]."""
+    from aligngraph_tpu_torch.ops import monotone_chain as mc
+
+    r = results["chain"]
+    got = mc.monotone_chain_cuda(t0, t1, w, off)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    want = mc.monotone_chain_plain(t0, t1, w, off)
+    ev[1].record()
+    torch.cuda.synchronize()
+    err = max(max_err(g, e) for g, e in zip(got, want))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    m = off[1:] - off[:-1]
+    reps = 3 if int(m.max()) > 10_000 else 20
+    r["shapes"][label] = t = {
+        "placements": off.numel() - 1, "blocks": int(off[-1]),
+        "max_m": int(m.max()),
+        "ms": cuda_ms(lambda: mc.monotone_chain_cuda(t0, t1, w, off), reps),
+        "plain_ms": ev[0].elapsed_time(ev[1]), **chain_bound(card, off)}
+    phase("kernels", f"{CHAIN['name']} {label}: {t['placements']} "
+          f"placements, {t['blocks']} blocks (max m {t['max_m']}); "
+          f"max_abs_err {err} (best, parent, trim, keep); {t['ms']:.4f} ms "
+          f"vs plain {t['plain_ms']:.2f} ms; bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of it")
+    if err != 0:
+        raise AssertionError(f"{CHAIN['name']} disagrees with its plain "
+                             f"version on {label}: {err}")
+
+
+def check_chain(results: dict, card: dict) -> None:
+    """time_chain on many small placements (m 2-64), on placements of
+    1,024, CHAIN_SMEM_BLOCKS (the last that fits shared memory), one more
+    (global memory) and 50,000 blocks, and on a batch built for ties and
+    zero kept weight.  Phase masb adds the largest launch of its main
+    path (CHAIN_MAIN), whose figures stand for the kernel."""
+    rng = np.random.default_rng(14)
+    cases = [
+        ("many small", lambda: chain_blocks(
+            rng, rng.integers(2, 65, 400))),
+        ("m 1024", lambda: chain_blocks(rng, [1024] * 4)),
+        (f"m {CHAIN_SMEM_BLOCKS}", lambda: chain_blocks(
+            rng, [CHAIN_SMEM_BLOCKS])),
+        (f"m {CHAIN_SMEM_BLOCKS + 1}", lambda: chain_blocks(
+            rng, [CHAIN_SMEM_BLOCKS + 1])),
+        ("m 50000", lambda: chain_blocks(rng, [50_000])),
+        ("ties, kept weight <= 0", lambda: chain_blocks(
+            rng, rng.integers(2, 300, 60), spread=3, back=0.6)),
+    ]
+    for label, make in cases:
+        time_chain(results, card, label, *make())
+
+
+@contextlib.contextmanager
+def largest_chain_launch():
+    """monotone_chain_cuda wrapped for the block: the inputs of its launch
+    with the most (i, j) pairs are kept (copies on the card) in the dict
+    it yields, under "args"."""
+    from aligngraph_tpu_torch.ops import monotone_chain as mc
+
+    run, kept = mc.monotone_chain_cuda, {}
+
+    def keep(t0, t1, w, off):
+        m = (off[1:] - off[:-1]).double()
+        pairs = float((m * (m - 1) / 2).sum())
+        if pairs > kept.get("pairs", -1.0):
+            kept.update(pairs=pairs, args=tuple(
+                x.clone() for x in (t0, t1, w, off)))
+        return run(t0, t1, w, off)
+
+    mc.monotone_chain_cuda = keep
+    try:
+        yield kept
+    finally:
+        mc.monotone_chain_cuda = run
+
+
 def counted(fn):
     """fn() with every kernel count set to 0 just before it -> (fn's
     result, launches, lanes, by_L) read just after; by_L maps "kernel L"
-    to {"launches", "lanes"}."""
+    to {"launches", "lanes"} for the banded kernels, and launches and
+    lanes (placements) of the chain DP are under "chain"."""
     from aligngraph_tpu_torch.ops import banded_sw_cuda as k
+    from aligngraph_tpu_torch.ops import monotone_chain as mc
 
     k.reset_launches()
+    mc.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(k.LAUNCHES), dict(k.LANES), k.launches_by_length()
+    return (out, {**k.LAUNCHES, **mc.LAUNCHES}, {**k.LANES, **mc.LANES},
+            k.launches_by_length())
 
 
 def require_launched(path: str, launches: dict, by_l: dict,
-                     results: dict) -> None:
+                     results: dict, need=BANDED) -> None:
+    """Records the path's launches in results and fails unless every
+    kernel of `need` launched on it."""
     for n, r in results.items():
         r["launches_by_path"][path] = {
-            "launches": launches[n],
+            "launches": launches.get(n, 0),
             **{key.split()[1]: v for key, v in by_l.items()
                if key.split()[0] == n}}
     phase("launches", f"{path}: " + "; ".join(
         f"{key}: {v['launches']} launches, {v['lanes']} lanes"
-        for key, v in by_l.items()))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the {path} "
-                             f"path: {launches}")
+        for key, v in by_l.items())
+        + f"; chain: {launches.get('chain', 0)} launches")
+    missing = [n for n in need if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{missing} not launched on the {path} path: "
+                             f"{launches}")
 
 
 def cuda_equals_cpu(label: str, genome, index, cfg, reads,
@@ -1217,7 +1380,7 @@ def pipeline_full(results: dict, wl: dict, smi: str) -> None:
     line, e_launches, e_lanes, e_by_l = counted(
         lambda: bench_pipeline.report(wl, res, wall, device="cuda"))
     eval_s = time.perf_counter() - t0
-    require_launched("eval", e_launches, e_by_l, results)
+    require_launched("eval", e_launches, e_by_l, results, need=WITH_CHAIN)
     # the main path: run_pipeline, then Eval of its extended contigs
     for n, r in results.items():
         r["launches"] = launches[n] + e_launches[n]
@@ -1425,7 +1588,7 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
             wall = time.perf_counter() - t0
     finally:
         driver.ReadAligner = real
-    require_launched("big", launches, by_l, results)
+    require_launched("big", launches, by_l, results, need=WITH_CHAIN)
     for n, r in results.items():
         r["launches"] += launches[n]
     mem = {k: round(v.get("device_peak_bytes", 0) / 2**30, 2)
@@ -1765,12 +1928,14 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
     t0 = time.perf_counter()
-    res, launches, lanes, by_l = counted(
-        lambda: run_pipeline(cfg, reads=reads, contigs=contigs,
-                             genome=genome, device="cuda"))
+    with largest_chain_launch() as chain_run:
+        res, launches, lanes, by_l = counted(
+            lambda: run_pipeline(cfg, reads=reads, contigs=contigs,
+                                 genome=genome, device="cuda"))
     wall = time.perf_counter() - t0
     del reads, contigs, genome
-    require_launched("masb", launches, by_l, results)
+    require_launched("masb", launches, by_l, results, need=WITH_CHAIN)
+    chain_launches = [chain_run]
     st = res.stats
     stage = st["stage_seconds"]
     phase("masb", f"run_pipeline {res.wall_seconds:.2f} s + stage (5) "
@@ -1808,17 +1973,31 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
                        ("uncorrected", work / "uncorrected_all.fa"),
                        ("corrected", work / "corrected_all.fa")):
         t0, es = time.perf_counter(), {}
-        m, el, _, e_by_l = counted(
-            lambda: evaluate(work / "target.fa", path, device="cuda",
-                             index=index, stats=es))
-        require_launched(f"masb_eval_{name}", el, e_by_l, results)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with largest_chain_launch() as kept:
+            m, el, _, e_by_l = counted(
+                lambda: evaluate(work / "target.fa", path, device="cuda",
+                                 index=index, stats=es))
+        # the align's peak (seed lookups, tile DP, _finalize) above the
+        # resident index, and that per aligned base out of the tile DP
+        peak = torch.cuda.max_memory_allocated() - base
+        per_base = peak / max(es["finalize_counts"]["bases"], 1)
+        chain_launches.append(kept)
+        require_launched(f"masb_eval_{name}", el, e_by_l, results,
+                         need=WITH_CHAIN)
         for n in results:
             e_launches[n] += el[n]
         evals[name] = {**{k: m[k] for k in EVAL_KEYS},
                        "average_identity": round(m["average_identity"], 4)}
         phase("masb", f"Eval of the {name} {time.perf_counter() - t0:.2f} s "
               f"(upload {es['index_s']:.2f}, align {es['align_s']:.2f}, of "
-              f"it _finalize {es['finalize_s']:.2f}): {m}; {smi}")
+              f"it _finalize {es['finalize_s']:.2f}: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in es["finalize_split"].items())
+              + f"; counts {es['finalize_counts']}; device peak above "
+              f"the index {peak / 2**30:.3f} GiB, {per_base:.1f} B an "
+              f"aligned base): {m}; {smi}")
     del index
     for n, r in results.items():
         r["launches"] += launches[n] + e_launches[n]
@@ -1867,6 +2046,14 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
         raise AssertionError(f"masb: {evals} {ks} {splits} != the recorded "
                              f"{MASB_EVAL} {MASB_KMER_STATS} {MASB_SPLITS}")
     del res
+    # the chain kernel on its largest launch of this main path, against
+    # the plain version; these figures stand for it in the JSON line
+    big = max(chain_launches, key=lambda k: k["pairs"])
+    time_chain(results, card_figures(torch.cuda.get_device_name(0)),
+               CHAIN_MAIN, *big.pop("args"))
+    del chain_launches
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+        results["chain"][key] = results["chain"]["shapes"][CHAIN_MAIN][key]
     phase("masb", masb_cuda_vs_cpu(work / "check"))
     phase("masb", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
@@ -1906,6 +2093,7 @@ def main() -> int:
 
     results = kernel_results()
     check_kernels(results, card)
+    check_chain(results, card)
 
     ra = read_aligner_path(results)
     with tempfile.TemporaryDirectory() as tmp:

@@ -248,6 +248,10 @@ def test_misassembly_stats(masb_runs):
         for key in ("index_s", "reads_s", "coverage_s", "contig_index_s",
                     "contigs_s", "placement_loops_s", "sweep_split_s"):
             assert f[key] >= 0, key
+        # the contig align's _finalize, by step, and its counts
+        assert 0 <= sum(f["finalize_split"].values()) <= f["finalize_s"] \
+            <= f["contigs_s"]
+        assert f["finalize_counts"]["rows"] == f["placements"]
     assert sum(f["contigs_split"] for f in st["misassembly"].values()) >= 1
 
 
@@ -272,7 +276,8 @@ def test_chimera_outcomes_of_the_run(masb_runs):
 
 def test_eval_shared_index_and_stats(masb_runs):
     """evaluate on a genome_index built once gives the metrics it gives
-    alone, and reports its aligner's seconds."""
+    alone, and reports its aligner's seconds, _finalize's by step, and
+    _finalize's counts."""
     _, _, tdir, _ = masb_runs
     target = tdir.parent / "target.fa"
     index = genome_index(target)
@@ -281,5 +286,9 @@ def test_eval_shared_index_and_stats(masb_runs):
         got = evaluate(target, tdir / name, device="cpu", index=index,
                        stats=st)
         assert got == evaluate(target, tdir / name, device="cpu"), name
-        assert set(st) == {"index_s", "align_s", "finalize_s"}
+        assert set(st) == {"index_s", "align_s", "finalize_s",
+                           "finalize_split", "finalize_counts"}
         assert 0 <= st["finalize_s"] <= st["align_s"]
+        assert 0 <= sum(st["finalize_split"].values()) <= st["finalize_s"]
+        assert st["finalize_counts"]["placements"] >= \
+            st["finalize_counts"]["rows"] > 0

@@ -1,7 +1,8 @@
 """aligngraph_tpu_torch.profile_contig on the CPU: the workload and counts
 of scripts/profile_contig_align.py (run as a subprocess, JAX on the CPU),
 every layer reported, its timed copy of _run_tile_jobs' loop equal to the
-module's, and no fallback without a CUDA device."""
+module's, the finalize split by step and its counts, and no fallback
+without a CUDA device."""
 
 import copy
 import os
@@ -60,9 +61,20 @@ def test_counts_equal_jax_script(tmp_path, capsys):
     layers = rep["layers"][0]
     assert set(layers) == set(pc.LAYERS)
     assert all(v > 0 for v in layers.values()), layers
-    parts = sum(layers[k] for k in ("windows_host", "dp_device",
-                                    "copy_wait", "copy_back_host"))
+    parts = sum(layers[k] for k in ("windows_host", "dp_device", "scatter"))
     assert parts <= layers["dp"]
+    # the finalize split and counts (no peak bytes without CUDA)
+    assert len(rep["finalize_split"]) == 1
+    assert set(rep["finalize_split"][0]) == set(cal.FINALIZE_STEPS)
+    assert rep["finalize_peak_bytes"] == []
+    assert sum(rep["finalize_split"][0].values()) <= layers["finalize"]
+    fc = rep["finalize_counts"]
+    assert fc["placements"] >= fc["rows"] == rep["placements"]
+    assert fc["blocks"] >= fc["dp_blocks"] >= fc["max_m"] >= 0
+    assert fc["sum_m2"] >= fc["max_m"] ** 2
+    assert fc["passes"] == 1 and fc["bases"] >= fc["blocks"]
+    assert rep["launches_by_length"]["chain"] == {"launches": 0,
+                                                  "lanes": 0}
     assert len(rep["walls_s"]) == 1 and rep["index_build_s"] > 0
     # the batched seeding's counts: every chunk and orientation at once
     sd = rep["seeding"]
@@ -83,26 +95,26 @@ def test_timed_tile_jobs_equal_module():
     kept = {}
 
     def keep(jobs, placements):
-        kept.update(jobs=jobs, placements=copy.deepcopy(placements))
+        kept.update(jobs=jobs, placements=placements)
 
     ca._run_tile_jobs = keep
     ca.align(contigs)
     del ca._run_tile_jobs
-    jobs = kept["jobs"]
+    jobs, pl = kept["jobs"], kept["placements"]
     assert len(jobs) > ca.dp_batch // 8
-    want = copy.deepcopy(kept["placements"])
+    want = copy.deepcopy(pl)
     ca._run_tile_jobs(jobs, want)
-    got = copy.deepcopy(kept["placements"])
+    got = copy.deepcopy(pl)
     totals = dict.fromkeys(pc.LAYERS, 0.0)
     pc.run_tile_jobs_timed(ca, jobs, got, totals)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g["pos_map"].tobytes() == w["pos_map"].tobytes()
-        assert (g["pos_map"] >= 0).any()
+    assert got.buf.numpy().tobytes() == want.buf.numpy().tobytes()
+    assert all((got.buf[a:b] >= 0).any()
+               for a, b in zip(got.off[:-1], got.off[1:]))
     assert totals["dp_device"] > 0
     # through align: the timed layers change nothing
     plain = ca.align(contigs)
-    timed, _, _ = pc.layer_align(ca, contigs, torch.device("cpu"))
+    timed, _, _, fin = pc.layer_align(ca, contigs, torch.device("cpu"))
+    assert fin["counts"] == ca.finalize_counts
     for f in ("chunk_id", "fr", "score", "source_start", "source_end",
               "target_start", "target_end", "target_gap"):
         np.testing.assert_array_equal(getattr(timed, f), getattr(plain, f))
