@@ -42,9 +42,13 @@ ARGTYPES = {
     # tb, best_i, best_b, g0, pos_map, B, L, W, pad, max_steps, device,
     # stream
     "ag_sw_traceback": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # t0, t1, w, offsets, best, parent, trim, keep, n_placements, max_m,
-    # device, stream
-    "ag_monotone_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # t0, t1, w, offsets, order, lo, best, parent, trim, keep, scratch,
+    # n_cluster, n_cta, n_warp, max_m_cluster, max_m_cta, wide, device,
+    # stream
+    "ag_monotone_chain": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _I, _P],
+    # out, n
+    "ag_monotone_chain_limits": [_P, _I],
 }
 
 _lock = threading.Lock()

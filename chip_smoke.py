@@ -23,9 +23,14 @@ Phases, one line each, any failure raises (non-zero exit):
      launch carries on the paths and at full batches (DP_SWEEP).
      Then the contig aligner's chain DP kernel (monotone_chain_kernel)
      against monotone_chain_plain on 400 placements of 2-64 blocks, on
-     placements of 1,024, 8,192 (the last held in shared memory), 8,193
-     and 50,000 blocks and on a batch built for ties and zero kept
-     weight: best, parent, trim and keep equal.
+     placements of 1,024, 8,192, 8,193 and 50,000 blocks, on a batch
+     built for ties and zero kept weight, and at the edges of its design
+     (check_chain: m = B and B + 1, the cluster threshold and a
+     cluster's int32 shared-memory capacity each - 1, itself and + 1,
+     targets past 2^31, also a cluster's int64 capacity + 1, equal gains
+     across block edges, the longest placement last), each with the
+     launch plan it must take: best, parent, trim and keep equal; the
+     whole call and the kernel alone timed.
      Everything is integer: tolerance 0.  CUDA-event times, kernel vs
      plain, and each kernel's bound (bytes or operations on these inputs)
      per shape.
@@ -535,15 +540,13 @@ def check_kernels(results: dict, card: dict) -> None:
                   f"{t['bound_ms'] / t['ms']:.3f} of it")
 
 
-# integer operations per (i, j) pair of the chain DP, each on int64: the
-# overlap, its clamp, the kept weight, its test, the gain, its select, the
-# compare with the running best and the two selects of (gain, j).  Counted
-# at the card's int32 rate: an int64 operation takes at least one int32
-# instruction, so the bound stays a floor.
+# integer operations per (i, j) pair of the chain DP, counted at the
+# card's int32 rate: the overlap, its clamp, the kept weight, its test, the
+# gain, its select, the compare with the running best and the two selects
+# of (gain, j).  The redesigned kernel does about six int32 operations a
+# pair (csrc/monotone_chain.cu); nine stays the count, a floor, so that
+# shares compare with the first kernel's.
 CHAIN_OPS_PER_PAIR = 9
-# blocks a CTA of the chain kernel keeps in shared memory
-# (csrc/monotone_chain.cu: kSmemBlocks)
-CHAIN_SMEM_BLOCKS = 8192
 # the shape whose figures stand for the kernel in the JSON line: the
 # largest launch of phase masb's main path
 CHAIN_MAIN = "masb's largest launch"
@@ -573,6 +576,18 @@ def chain_blocks(rng, sizes, spread=None, back=0.1):
     return tuple(torch.from_numpy(a).cuda() for a in (t0, t0 + w, w, off))
 
 
+def equal_gain_blocks(m: int, parts: int = 2):
+    """`parts` placements of m blocks all alike but for their targets,
+    which repeat every 15 blocks (w 6, steps of 4): equal gains on both
+    sides of every block edge of the kernel's DP.  -> CUDA int64 (t0, t1,
+    w, offsets)."""
+    t0 = np.tile(np.arange(0, 60, 4), -(-m * parts // 15))[:m * parts]
+    w = np.full(m * parts, 6)
+    off = np.arange(parts + 1) * m
+    return tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                 for a in (t0, t0 + w, w, off))
+
+
 def chain_bound(card, off) -> dict:
     """The chain DP's bound on a batch: sum m(m-1)/2 pairs of
     CHAIN_OPS_PER_PAIR operations; t0, t1, w and the offsets read,
@@ -584,16 +599,21 @@ def chain_bound(card, off) -> dict:
                  49 * n + 8 * off.numel())
 
 
-def time_chain(results: dict, card: dict, label: str, t0, t1, w,
-               off) -> None:
+def time_chain(results: dict, card: dict, label: str, t0, t1, w, off,
+               expect=None) -> None:
     """monotone_chain_kernel against monotone_chain_plain on one batch:
-    best, parent, trim and keep equal (tolerance 0, integers); the
-    kernel's CUDA-event ms, the plain version's (one run: each of its
-    steps is several small launches) and the bound go to
+    best, parent, trim and keep equal (tolerance 0, integers).  The
+    kernel's launch plan (chain_plan) is made first, and `expect` maps
+    ChainPlan fields to the values it must have; "ms" is the whole call
+    as the main path makes it (the plan and its copy to the host inside),
+    "kernel_ms" the kernel alone on the plan made before (CUDA events
+    both), "plain_ms" the plain version's (one run: each of its steps is
+    several small launches); they and the bound go to
     results["chain"]["shapes"][label]."""
     from aligngraph_tpu_torch.ops import monotone_chain as mc
 
     r = results["chain"]
+    plan = mc.chain_plan(t0, t1, w, off, mc.kernel_limits())
     got = mc.monotone_chain_cuda(t0, t1, w, off)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
@@ -603,44 +623,92 @@ def time_chain(results: dict, card: dict, label: str, t0, t1, w,
     torch.cuda.synchronize()
     err = max(max_err(g, e) for g, e in zip(got, want))
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    m = off[1:] - off[:-1]
-    reps = 3 if int(m.max()) > 10_000 else 20
+    reps = 3 if plan.max_m > 10_000 else 20
+    paths = {k: getattr(plan, k) for k in ("n_cluster", "n_cta", "n_warp",
+                                           "wide")}
     r["shapes"][label] = t = {
         "placements": off.numel() - 1, "blocks": int(off[-1]),
-        "max_m": int(m.max()),
+        "max_m": plan.max_m, **paths,
+        "scratch": mc.needs_scratch(plan, mc.kernel_limits()),
         "ms": cuda_ms(lambda: mc.monotone_chain_cuda(t0, t1, w, off), reps),
+        "kernel_ms": cuda_ms(lambda: mc._launch(t0, t1, w, off, plan), reps),
         "plain_ms": ev[0].elapsed_time(ev[1]), **chain_bound(card, off)}
     phase("kernels", f"{CHAIN['name']} {label}: {t['placements']} "
-          f"placements, {t['blocks']} blocks (max m {t['max_m']}); "
-          f"max_abs_err {err} (best, parent, trim, keep); {t['ms']:.4f} ms "
-          f"vs plain {t['plain_ms']:.2f} ms; bound {t['bound_ms']:.4f} ms "
-          f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of it")
+          f"placements, {t['blocks']} blocks (max m {t['max_m']}; "
+          f"clusters / CTAs / warps {plan.n_cluster} / {plan.n_cta} / "
+          f"{plan.n_warp}, {'int64' if plan.wide else 'int32'}"
+          f"{', scratch rows' if t['scratch'] else ''}); max_abs_err {err} "
+          f"(best, parent, trim, keep); {t['ms']:.4f} ms a call, "
+          f"{t['kernel_ms']:.4f} ms the kernel alone, vs plain "
+          f"{t['plain_ms']:.2f} ms; bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of the call, "
+          f"{t['bound_ms'] / t['kernel_ms']:.3f} of the kernel")
     if err != 0:
         raise AssertionError(f"{CHAIN['name']} disagrees with its plain "
                              f"version on {label}: {err}")
+    bad = {k: (t[k], v) for k, v in (expect or {}).items() if t[k] != v}
+    if bad:
+        raise AssertionError(f"{CHAIN['name']} {label}: launch plan "
+                             f"(got, expected) {bad}")
 
 
 def check_chain(results: dict, card: dict) -> None:
     """time_chain on many small placements (m 2-64), on placements of
-    1,024, CHAIN_SMEM_BLOCKS (the last that fits shared memory), one more
-    (global memory) and 50,000 blocks, and on a batch built for ties and
-    zero kept weight.  Phase masb adds the largest launch of its main
-    path (CHAIN_MAIN), whose figures stand for the kernel."""
+    1,024, 8,192, 8,193 and 50,000 blocks, on a batch built for ties and
+    zero kept weight, and at the edges of the kernel's design, each with
+    the path its plan must take: m = B and B + 1 (a warp, a CTA); the
+    cluster threshold - 1, itself and + 1; a cluster's shared-memory
+    capacity in int32 - 1, itself and + 1 (the last in the scratch rows,
+    its parent walk in device memory); targets spread past 2^31 (the
+    int64 instantiation), also at a cluster's int64 capacity + 1; equal
+    gains on both sides of every block edge; and a CSR order with the
+    longest placement last.  The kernel's sizes come from the library
+    (ag_monotone_chain_limits) and must be the source's.  Phase masb adds
+    the largest launch of its main path (CHAIN_MAIN), whose figures stand
+    for the kernel."""
+    from aligngraph_tpu_torch.ops import monotone_chain as mc
+
+    lim = mc.kernel_limits()
+    src = mc.source_limits()
+    if {k: lim[k] for k in src} != src:
+        raise AssertionError(f"chain kernel sizes: library {lim}, source "
+                             f"{src}")
+    B, thr = lim["rows"], lim["cluster_from"]
+    cap32 = lim["cluster"] * lim["smem_rows32"]
+    cap64 = lim["cluster"] * lim["smem_rows64"]
+    phase("kernels", f"{CHAIN['name']} sizes: {lim}")
     rng = np.random.default_rng(14)
     cases = [
         ("many small", lambda: chain_blocks(
-            rng, rng.integers(2, 65, 400))),
-        ("m 1024", lambda: chain_blocks(rng, [1024] * 4)),
-        (f"m {CHAIN_SMEM_BLOCKS}", lambda: chain_blocks(
-            rng, [CHAIN_SMEM_BLOCKS])),
-        (f"m {CHAIN_SMEM_BLOCKS + 1}", lambda: chain_blocks(
-            rng, [CHAIN_SMEM_BLOCKS + 1])),
-        ("m 50000", lambda: chain_blocks(rng, [50_000])),
+            rng, rng.integers(2, 65, 400)), None),
+        ("m 1024", lambda: chain_blocks(rng, [1024] * 4), None),
+        ("m 8192", lambda: chain_blocks(rng, [8192]), None),
+        ("m 8193", lambda: chain_blocks(rng, [8193]), None),
+        ("m 50000", lambda: chain_blocks(rng, [50_000]), None),
         ("ties, kept weight <= 0", lambda: chain_blocks(
-            rng, rng.integers(2, 300, 60), spread=3, back=0.6)),
+            rng, rng.integers(2, 300, 60), spread=3, back=0.6), None),
+        (f"m B {B} and B + 1", lambda: chain_blocks(rng, [B, B + 1]),
+         {"n_cluster": 0, "n_cta": 1, "n_warp": 1}),
+        (f"cluster threshold {thr} - 1, itself, + 1", lambda: chain_blocks(
+            rng, [thr - 1, thr, thr + 1], back=0.3),
+         {"n_cluster": 1, "n_cta": 2, "n_warp": 0}),
+        (f"cluster int32 capacity {cap32} - 1, itself, + 1",
+         lambda: chain_blocks(rng, [cap32 - 1, cap32, cap32 + 1]),
+         {"n_cluster": 3, "wide": False, "scratch": True}),
+        ("targets past 2^31 (int64)", lambda: chain_blocks(
+            rng, [3000, thr + 50, 40, 7], spread=1 << 33, back=0.3),
+         {"wide": True, "n_cluster": 1, "scratch": False}),
+        (f"cluster int64 capacity {cap64} + 1", lambda: chain_blocks(
+            rng, [cap64 + 1, 5], spread=1 << 33, back=0.3),
+         {"wide": True, "n_cluster": 1, "scratch": True}),
+        ("equal gains across block edges", lambda: equal_gain_blocks(
+            thr + 33, 2), {"n_cluster": 2}),
+        ("longest placement last", lambda: chain_blocks(
+            rng, [2, 40, 5, 300, 33, 1500, thr + 100]),
+         {"n_cluster": 1, "n_cta": 4, "n_warp": 2}),
     ]
-    for label, make in cases:
-        time_chain(results, card, label, *make())
+    for label, make, expect in cases:
+        time_chain(results, card, label, *make(), expect=expect)
 
 
 @contextlib.contextmanager
@@ -652,13 +720,13 @@ def largest_chain_launch():
 
     run, kept = mc.monotone_chain_cuda, {}
 
-    def keep(t0, t1, w, off):
+    def keep(t0, t1, w, off, **kw):
         m = (off[1:] - off[:-1]).double()
         pairs = float((m * (m - 1) / 2).sum())
         if pairs > kept.get("pairs", -1.0):
             kept.update(pairs=pairs, args=tuple(
                 x.clone() for x in (t0, t1, w, off)))
-        return run(t0, t1, w, off)
+        return run(t0, t1, w, off, **kw)
 
     mc.monotone_chain_cuda = keep
     try:
@@ -2052,7 +2120,7 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
     time_chain(results, card_figures(torch.cuda.get_device_name(0)),
                CHAIN_MAIN, *big.pop("args"))
     del chain_launches
-    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+    for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by"):
         results["chain"][key] = results["chain"]["shapes"][CHAIN_MAIN][key]
     phase("masb", masb_cuda_vs_cpu(work / "check"))
     phase("masb", f"phase wall {time.perf_counter() - t_phase:.1f} s")
