@@ -536,10 +536,11 @@ class ContigAligner:
     """Aligns formalized contig chunks to the genome; the seeding and the
     tile DP run on `device`.
 
-    index: a seed index of `genome_codes`.  One on `device` (a
-    ReadAligner's, which shares it) is used as it is; one on the CPU
-    (build_index returns one) is moved there once; one on another device
-    raises.
+    index: a seed index of `genome_codes`; without one, build_index
+    builds it on `device`.  One on `device` (a ReadAligner's, which
+    shares it) is used as it is; one on the CPU (SeedIndex.from_numpy
+    carries the JAX package's there) is moved there once; one on another
+    device raises.
     """
 
     def __init__(self, genome_codes: np.ndarray, cfg: Config,
@@ -555,7 +556,8 @@ class ContigAligner:
         self.device = torch.empty(0, device=device).device
         self.cfg = cfg
         if index is None:
-            index = build_index(self.genome_np, cfg.seed_len)
+            index = build_index(self.genome_np, cfg.seed_len,
+                                device=self.device)
         at = index.sorted_kmers.device
         if at != self.device:
             if at.type != "cpu":

@@ -742,9 +742,10 @@ class ReadAligner:
     def build(cls, genome_codes: np.ndarray, cfg: Config,
               batch_pairs: int = 32768, c13: bool = True, *,
               device) -> "ReadAligner":
-        """Index the genome on the host, then place both on `device`."""
+        """Index the genome on `device` and place it there too."""
         return cls.from_index(genome_codes,
-                              build_index(genome_codes, cfg.seed_len), cfg,
+                              build_index(genome_codes, cfg.seed_len,
+                                          device=device), cfg,
                               batch_pairs=batch_pairs, c13=c13,
                               device=device)
 
@@ -752,8 +753,9 @@ class ReadAligner:
     def from_index(cls, genome_codes: np.ndarray, index: SeedIndex,
                    cfg: Config, batch_pairs: int = 32768, c13: bool = True,
                    *, device) -> "ReadAligner":
-        """An aligner over a seed index built elsewhere (SeedIndex.from_numpy
-        carries the JAX package's index across)."""
+        """An aligner over a seed index built elsewhere: one on `device`
+        is used as it is, one elsewhere (SeedIndex.from_numpy carries the
+        JAX package's index across onto the CPU) is moved there."""
         if index.seed_len != cfg.seed_len:
             raise ValueError(f"index seed_len {index.seed_len} != "
                              f"cfg.seed_len {cfg.seed_len}")

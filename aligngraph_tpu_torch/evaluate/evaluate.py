@@ -95,13 +95,15 @@ def eval_queries(craw) -> Contigs:
                    chunk_len=np.array(chunk_len, np.int64))
 
 
-def genome_index(genome_path, cfg: Optional[Config] = None) -> SeedIndex:
+def genome_index(genome_path, cfg: Optional[Config] = None, *,
+                 device) -> SeedIndex:
     """The seed index that evaluate's aligner builds over genome_path's
-    records end to end: built once, it serves several evaluate(...,
-    index=) calls on one genome."""
+    records end to end, built on `device`: built once, it serves several
+    evaluate(..., index=) calls on one genome."""
     cfg = cfg or Config()
     return build_index(np.concatenate(
-        [encode(s) for s in read_fasta(genome_path)[1]]), cfg.seed_len)
+        [encode(s) for s in read_fasta(genome_path)[1]]), cfg.seed_len,
+        device=device)
 
 
 def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
@@ -109,9 +111,9 @@ def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
              index: Optional[SeedIndex] = None,
              stats: Optional[Dict] = None) -> Dict[str, float]:
     """The metrics of contigs_path's contigs against genome_path.  index,
-    when given, is genome_index(genome_path, cfg) on the device or the
-    CPU.  stats, when given, gets the contig aligner's seconds: index_s
-    (its index build, or the index's upload), align_s and, of it,
+    when given, is genome_index(genome_path, cfg, device=) on the device
+    or the CPU.  stats, when given, gets the contig aligner's seconds:
+    index_s (its index build, or the index's upload), align_s and, of it,
     finalize_s, split by step in finalize_split; and _finalize's counts,
     finalize_counts (contig_aligner.finalize_placements)."""
     cfg = cfg or Config()

@@ -2,20 +2,21 @@
 
 Counterpart of aligngraph_tpu/ops/seeding.py, with the same semantics:
 
- - build (host, numpy): pack every `seed_len`-mer (2-bit codes) into int32,
-   drop windows containing N, canonicalize (min of the packed k-mer and its
-   reverse complement; odd seed_len so no palindromes), sort by canonical
-   value -> (sorted_kmers, sorted_posflip) with a prefix bucket table.
-   sorted_posflip packs the genome offset (bits 0-30) and a flip bit
-   (bit 31: the genome k-mer was not the canonical form).
+ - build (on the index's device): pack every `seed_len`-mer (2-bit codes)
+   into int32, drop windows containing N, canonicalize (min of the packed
+   k-mer and its reverse complement; odd seed_len so no palindromes),
+   stable-sort by canonical value -> (sorted_kmers, sorted_posflip) with
+   a prefix bucket table.  sorted_posflip packs the genome offset (bits
+   0-30) and a flip bit (bit 31: the genome k-mer was not the canonical
+   form).  The JAX module builds it on the host in numpy; this one gives
+   the same arrays bit for bit.
  - lookup (device): canonical query seeds, bucket table, then either the
    direct-addressed run (suffix_bits == 0) or a bounded binary search.
  - candidate selection (device): cluster hit diagonals within band_pad per
    read, both orientations at once (reverse diagonals offset by RC_OFFSET),
    and keep the top `max_candidates` clusters by (votes desc, diag asc).
 
-The host half is a numpy copy of the JAX module's (which imports jax); the
-device half is plain torch ops on tensors of any device.
+Every function is plain torch ops on tensors of any device.
 """
 
 from __future__ import annotations
@@ -64,6 +65,12 @@ class SeedIndex:
                    search_steps=int(idx.search_steps),
                    suffix_bits=int(idx.suffix_bits))
 
+    @property
+    def nbytes(self) -> int:
+        """The three tensors' bytes, on whichever device they lie."""
+        return sum(t.numel() * t.element_size() for t in
+                   (self.sorted_kmers, self.sorted_posflip, self.bucket_lo))
+
     def to(self, device) -> "SeedIndex":
         return dataclasses.replace(
             self, sorted_kmers=self.sorted_kmers.to(device),
@@ -71,86 +78,106 @@ class SeedIndex:
             bucket_lo=self.bucket_lo.to(device))
 
 
-def pack_kmers_np(codes: np.ndarray, seed_len: int):
-    """All overlapping seed_len-mers of `codes` -> (packed int32, valid bool).
+def pack_kmers(codes: torch.Tensor, seed_len: int):
+    """All overlapping seed_len-mers of int8 `codes` -> (packed int32,
+    valid bool), on the device of `codes`.
 
-    packed[i] encodes codes[i:i+seed_len] big-endian 2 bits/base; windows
-    containing N (code>=4) are invalid.
+    packed[i] encodes codes[i:i+seed_len] big-endian 2 bits a base (one
+    shift-or pass a base; 2 * 15 bits fit in int32); windows containing
+    N (code >= 4) are invalid.
     """
-    n = len(codes)
-    m = n - seed_len + 1
+    dev = codes.device
+    m = codes.shape[0] - seed_len + 1
     if m <= 0:
-        return (np.zeros(0, np.int32), np.zeros(0, bool))
-    c = codes.astype(np.int64)
-    packed = np.zeros(m, dtype=np.int64)
-    invalid = np.zeros(m, dtype=bool)
+        return (torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev))
+    packed = torch.zeros(m, dtype=torch.int32, device=dev)
+    invalid = torch.zeros(m, dtype=torch.bool, device=dev)
     for k in range(seed_len):
-        w = c[k:k + m]
-        packed = (packed << 2) | np.where(w >= 4, 0, w)
-        invalid |= w >= 4
-    return packed.astype(np.int32), ~invalid
+        w = codes[k:k + m]
+        bad = w >= 4
+        invalid |= bad
+        packed.bitwise_left_shift_(2).bitwise_or_(w.masked_fill(bad, 0))
+    return packed, invalid.logical_not_()
 
 
-def rc_packed_np(packed: np.ndarray, seed_len: int) -> np.ndarray:
-    """Reverse complement of 2-bit packed k-mers (complement = base^3)."""
-    p = packed.astype(np.int64)
-    out = np.zeros_like(p)
-    for i in range(seed_len):
-        out = (out << 2) | (((p >> (2 * i)) & 3) ^ 3)
-    return out.astype(np.int32)
+def bucket_table(sorted_kmers: torch.Tensor, seed_len: int):
+    """The prefix bucket table of the sorted k-mers -> (bucket_lo,
+    search_steps, suffix_bits), bucket_lo on their device.
+
+    ~4 table slots per k-mer, capped at 26 bits (a 256 MB table); a big
+    genome with a short seed takes the full-width table, so lookups are
+    direct-addressed (suffix_bits == 0, no binary probes).  Bucket sizes
+    are counted into int32 slots and summed in place; only the largest
+    bucket (for the binary search's depth) comes down to the host."""
+    M = sorted_kmers.shape[0]
+    prefix_bits = min(26, 2 * seed_len,
+                      max(14, int(np.ceil(np.log2(max(M, 2)))) + 2))
+    if 2 * seed_len <= 26 and M >= (1 << 20):
+        prefix_bits = 2 * seed_len
+    suffix_bits = 2 * seed_len - prefix_bits
+    bucket_lo = torch.zeros((1 << prefix_bits) + 1, dtype=torch.int32,
+                            device=sorted_kmers.device)
+    counts = bucket_lo[1:]
+    counts.index_add_(0, sorted_kmers >> suffix_bits,
+                      torch.ones_like(sorted_kmers))
+    steps = 0
+    if suffix_bits:
+        max_bucket = int(counts.max())
+        steps = max(1, int(np.ceil(np.log2(max_bucket + 1))) + 1)
+    return bucket_lo.cumsum_(0), steps, suffix_bits
 
 
-def build_index(genome_codes: np.ndarray, seed_len: int = 15) -> SeedIndex:
-    """Host-side one-time canonical index build over the concatenated
-    genome; the returned index lies on the CPU (SeedIndex.to moves it)."""
+def build_index(genome_codes, seed_len: int, *, device) -> SeedIndex:
+    """The canonical seed index of the concatenated genome, built on
+    `device`: genome_codes (a numpy int8 array or an int8 tensor) goes
+    there once, and every step (pack, filter, canonical form, sort,
+    bucket table) runs there; only the number of valid windows (inside
+    the filter) and the largest bucket come down.  Each step's inputs are
+    freed as it ends, so the peak above what was allocated before is the
+    sort's, ~40 B a position (the stable sort's int64 order and buffers),
+    or for a small genome the 2^26-slot table's."""
     if seed_len > 15:
         raise ValueError("seed_len must be <= 15 (int32 packing)")
     if seed_len % 2 == 0:
         raise ValueError("seed_len must be odd (canonical k-mers need "
                          "palindrome-free packing)")
-    if len(genome_codes) >= RC_OFFSET - (1 << 20):
+    n = len(genome_codes)
+    if n >= RC_OFFSET - (1 << 20):
         raise ValueError(
             f"genome part too large for the int32 seed index "
-            f"({len(genome_codes)} >= 2^29): shard it into parts")
-    packed, valid = pack_kmers_np(genome_codes, seed_len)
-    pos = np.nonzero(valid)[0].astype(np.int32)
+            f"({n} >= 2^29): shard it into parts")
+    if not isinstance(genome_codes, torch.Tensor):
+        genome_codes = torch.from_numpy(
+            np.ascontiguousarray(genome_codes, np.int8))
+    packed, valid = pack_kmers(genome_codes.to(device, torch.int8), seed_len)
+    pos = valid.nonzero()[:, 0]
     fwd = packed[pos]
-    rc = rc_packed_np(fwd, seed_len)
+    pos = pos.to(torch.int32)
+    del packed, valid
+    # canonical form: the smaller of the pack and its reverse complement,
+    # bit 31 of posflip set where the reverse complement was taken
+    rc = rc_packed(fwd, seed_len)
     flip = rc < fwd
-    kmers = np.where(flip, rc, fwd)
-    posflip = np.where(flip, pos | np.int32(-2**31), pos).astype(np.int32)
-    # torch's stable sort (multi-threaded on the host) gives the
-    # permutation np.argsort(kmers, kind="stable") gives, in a fraction of
-    # its time at tens of Mb
-    order = torch.sort(torch.from_numpy(kmers), stable=True).indices.numpy()
-    sorted_kmers = kmers[order]
-    # ~4 table slots per k-mer, capped at 26 bits (a 256 MB table)
-    prefix_bits = min(26, 2 * seed_len,
-                      max(14, int(np.ceil(np.log2(max(len(kmers), 2)))) + 2))
-    if 2 * seed_len <= 26 and len(kmers) >= (1 << 20):
-        # big genome + short seed: the full-width table (<= 256 MB) makes
-        # lookups direct-addressed (suffix_bits == 0, no binary probes)
-        prefix_bits = 2 * seed_len
-    suffix_bits = 2 * seed_len - prefix_bits
-    n_buckets = 1 << prefix_bits
-    counts = np.bincount(sorted_kmers >> suffix_bits, minlength=n_buckets)
-    bucket_lo = np.zeros(n_buckets + 1, np.int32)
-    bucket_lo[1:] = np.cumsum(counts).astype(np.int32)
-    max_bucket = int(counts.max()) if counts.size else 0
-    return SeedIndex(
-        seed_len=seed_len,
-        genome_len=int(len(genome_codes)),
-        sorted_kmers=torch.from_numpy(np.ascontiguousarray(sorted_kmers)),
-        sorted_posflip=torch.from_numpy(posflip[order]),
-        bucket_lo=torch.from_numpy(bucket_lo),
-        search_steps=(0 if suffix_bits == 0 else
-                      max(1, int(np.ceil(np.log2(max_bucket + 1))) + 1)),
-        suffix_bits=suffix_bits,
-    )
+    kmers = torch.where(flip, rc, fwd)
+    del rc, fwd
+    posflip = torch.where(flip, pos | -2**31, pos)
+    del flip, pos
+    # stable, so equal k-mers keep ascending positions
+    # (np.argsort(kind="stable")'s order)
+    sorted_kmers, order = torch.sort(kmers, stable=True)
+    del kmers
+    sorted_posflip = posflip[order]
+    del posflip, order
+    bucket_lo, steps, suffix_bits = bucket_table(sorted_kmers, seed_len)
+    return SeedIndex(seed_len=seed_len, genome_len=n,
+                     sorted_kmers=sorted_kmers,
+                     sorted_posflip=sorted_posflip, bucket_lo=bucket_lo,
+                     search_steps=steps, suffix_bits=suffix_bits)
 
 
 def rc_packed(packed: torch.Tensor, seed_len: int) -> torch.Tensor:
-    """Device rc_packed_np."""
+    """Reverse complement of 2-bit packed k-mers (complement = base^3)."""
     p = packed.to(torch.int32)
     out = torch.zeros_like(p)
     for i in range(seed_len):

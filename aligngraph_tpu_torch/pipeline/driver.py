@@ -163,10 +163,11 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
            ) -> Tuple[PairAlignments, ContigAlignments]:
     """Stage (1): the reads' and the contigs' alignments.  The seed index
     and the aligners live in this function only, so the host and the
-    device memory they hold is freed when it returns; their host bytes go
-    to stats["seed_index_bytes"].  Under --iterativeMap each part's
-    seconds and counts go to _part_stats instead, and the bytes of the
-    per-part records joined at the end to stats["part_records_bytes"]."""
+    device memory they hold is freed when it returns; the index's bytes
+    on its device go to stats["seed_index_bytes"].  Under --iterativeMap
+    each part's seconds and counts go to _part_stats instead, and the
+    bytes of the per-part records joined at the end to
+    stats["part_records_bytes"]."""
     if cfg.iterative_map and genome.n_parts > 1:
         # --iterativeMap: per-part read alignment (reference `task0`
         # per-chromosome branch, AlignGraph.cpp:3581-3613) — bounds
@@ -179,8 +180,9 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
             if len(pseq) < cfg.seed_len:
                 continue
             t = time.time()
-            ra = ReadAligner.from_index(pseq, build_index(pseq, cfg.seed_len),
-                                        cfg, device=device)
+            ra = ReadAligner.from_index(
+                pseq, build_index(pseq, cfg.seed_len, device=device), cfg,
+                device=device)
             tb = time.time()
             r = ra.align(reads)
             tc = time.time()
@@ -212,14 +214,13 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
     # fork (`parallelMap`, AlignGraph.cpp:3720-3735); ours overlaps them
     # with 2 host threads (read batches and the contigs' seeds and tile
     # DP stream through the device while the other thread's host work
-    # runs).  One seed index, built on the host, serves both: the read
-    # aligner places it on the device, and the contig aligner seeds on
-    # that copy; the host copy dies here.
+    # runs).  One seed index, built on the device, serves both: the read
+    # aligner holds it, and the contig aligner seeds on it.
     import concurrent.futures as _cf
 
     t = time.time()
-    index = build_index(gseq, cfg.seed_len)
-    stats["seed_index_bytes"] = heap.host_bytes(index)
+    index = build_index(gseq, cfg.seed_len, device=device)
+    stats["seed_index_bytes"] = index.nbytes
     r_aligner = ReadAligner.from_index(gseq, index, cfg, device=device)
     del index
     # seconds of the index build and of each thread

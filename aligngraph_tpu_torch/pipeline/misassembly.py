@@ -86,7 +86,7 @@ def _coverage_from_reads(reads: Reads, contigs: Contigs, cfg: Config,
     # raw records: the reference's coverage loader (AlignGraph.cpp:
     # 3940-3984) has no C13 ratio filter
     t = time.time()
-    index = build_index(axis, cfg.seed_len)
+    index = build_index(axis, cfg.seed_len, device=device)
     stats["index_s"] = time.time() - t
     t = time.time()
     ali = ReadAligner.from_index(axis, index, cfg, c13=False,
@@ -164,7 +164,8 @@ def _placements(contigs: Contigs, genome_codes: np.ndarray, cfg: Config,
     # placement (the reference's pblat -fastMap does not chain introns);
     # relaxed acceptance — this loader's own MIN_THRESHOLD filter applies
     t = time.time()
-    index = build_index(np.asarray(genome_codes, np.int8), cfg.seed_len)
+    index = build_index(np.asarray(genome_codes, np.int8), cfg.seed_len,
+                        device=device)
     stats["contig_index_s"] = time.time() - t
     t = time.time()
     aligner = ContigAligner(genome_codes, cfg, index=index,

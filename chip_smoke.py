@@ -63,7 +63,9 @@ Phases, one line each, any failure raises (non-zero exit):
      builds equal; Eval of the extended contigs on both devices equal.
   kmer: the device k-mer layer build on bench_pipeline.py's workload
      (seed 7, 4.6 Mb, depth 25 = 575,000 pairs of 100 bp, 1,424 draft
-     contigs, distance 300-700, one part): both aligners on "cuda" as the
+     contigs, distance 300-700, one part): the seed index built on "cuda"
+     and on "cpu" at seed 13 and at seed 15, every field equal (the card's
+     CUDA-event ms and peak device bytes); both aligners on "cuda" as the
      driver runs them (the contig aligner on the read aligner's device
      index, not copied); the contig seeding of every draft contig's
      chunks in both orientations on "cuda" and on "cpu" (offsets, qpos,
@@ -166,7 +168,12 @@ Phases, one line each, any failure raises (non-zero exit):
      MASB_KMER_STATS and MASB_SPLITS; the chain DP kernel launched in
      the run and in each Eval, and its largest launch there (the most
      (i, j) pairs) held against the plain version and timed (the
-     kernel's figures in the JSON line).  Then remove_misassembly on a
+     kernel's figures in the JSON line).  Every seed index build of the
+     run and of Eval's target, on "cuda": its caller, bases, k-mers and
+     CUDA-event ms, and its peak device bytes above what was allocated
+     before it (the build run again on the same codes after the Evals);
+     stage (5)'s index over extended.fa's contigs (N separators) built
+     again on "cpu", every field equal.  Then remove_misassembly on a
      500 kb instance (seed 3703, 100,000 pairs) on "cuda" and on "cpu":
      the same bytes, with ": part" headers.
 The chain DP kernel must launch on the paths that align long contigs:
@@ -179,6 +186,7 @@ nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -772,8 +780,9 @@ def require_launched(path: str, launches: dict, by_l: dict,
 
 def cuda_equals_cpu(label: str, genome, index, cfg, reads,
                     batch: int) -> dict:
-    """align on "cuda" and on "cpu" (the plain path), both over the host
-    seed index `index` in batches of `batch` pairs: every FIELDS entry
+    """align on "cuda" and on "cpu" (the plain path), both over the seed
+    index `index` (built on the card; the CPU aligner takes a copy) in
+    batches of `batch` pairs: every FIELDS entry
     and the batches by transfer layout equal -> that count
     (ReadAligner.transfer)."""
     from aligngraph_tpu_torch import ReadAligner
@@ -847,7 +856,7 @@ def read_aligner_path(results: dict) -> dict:
 
     ref, cfg, data, lens = (ctx["ref"], ctx["cfg"], ctx["reads"].data,
                             ctx["reads"].lengths)
-    index = build_index(ref, cfg.seed_len)
+    index = build_index(ref, cfg.seed_len, device="cuda")
     wide = dataclasses.replace(cfg, distance_high=40_000)
     for label, n, b, c, layout in (
             ("dense, one batch", 2048, batch, cfg, "dense"),
@@ -859,7 +868,7 @@ def read_aligner_path(results: dict) -> dict:
         if got[layout] != -(-n // b):
             raise AssertionError(f"{label}: batches by layout {got}")
     tg, tdata, tlens = make_tandem_workload()
-    tindex = build_index(tg, cfg.seed_len)
+    tindex = build_index(tg, cfg.seed_len, device="cuda")
     treads = Reads(len(tlens), tdata.shape[1], tdata, tlens)
     for label, dhigh in (("tandem repeat, dense", 750),
                          ("tandem repeat, per-slot", 40_000)):
@@ -1058,7 +1067,7 @@ def seeding_cuda_vs_cpu(ra, gseq, cfg, contigs, index) -> None:
     """Phase kmer: the contig aligner's seeding of every draft contig's
     chunks, both orientations, on the card (ContigAligner.seed_hits on
     the read aligner's device index, which it must take without a copy)
-    and on the CPU (the host index `index`): offsets, qpos and tpos equal,
+    and on the CPU (`index`, the CPU's build): offsets, qpos and tpos equal,
     dtype and all; then the card's again in batches of SMALL_SEED_BUDGET
     seeds (segments straddling batches, the offsets summed over them),
     equal too.  Prints the seeds, hits and batches, the largest batch's
@@ -1134,6 +1143,107 @@ def eval_align_layers(genome_path, contigs_path) -> str:
             + ")")
 
 
+INDEX_FIELDS = ("sorted_kmers", "sorted_posflip", "bucket_lo",
+                "search_steps", "suffix_bits", "seed_len", "genome_len")
+
+
+def timed_build(codes, seed_len: int) -> tuple:
+    """build_index on "cuda" -> (index, CUDA-event ms, the peak device
+    bytes above what was allocated before it)."""
+    from aligngraph_tpu_torch.ops.seeding import build_index
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    index = build_index(codes, seed_len, device="cuda")
+    b.record()
+    torch.cuda.synchronize()
+    return (index, a.elapsed_time(b),
+            torch.cuda.max_memory_allocated() - base)
+
+
+def index_cuda_vs_cpu(name: str, label: str, codes, seed_len: int):
+    """The seed index of `codes` built on "cuda" and on "cpu", every
+    field equal -> (the card's index, the CPU's).  Prints the card's
+    CUDA-event ms and peak device bytes and the CPU's wall."""
+    from aligngraph_tpu_torch.ops.seeding import build_index
+
+    got, ms, peak = timed_build(codes, seed_len)
+    t0 = time.perf_counter()
+    want = build_index(codes, seed_len, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    bad = [f for f in INDEX_FIELDS
+           if not (torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                   if f in INDEX_FIELDS[:3]
+                   else getattr(got, f) == getattr(want, f))]
+    if bad or got.sorted_kmers.device.type != "cuda":
+        raise AssertionError(f"{name}: {label}: the card's seed index != "
+                             f"the CPU's in {bad}")
+    n = len(codes)
+    phase(name, f"{label}: seed index cuda == cpu, every field ({n} bases, "
+          f"{got.sorted_kmers.shape[0]} k-mers, suffix_bits "
+          f"{got.suffix_bits}, search_steps {got.search_steps}); cuda "
+          f"{ms:.2f} ms (CUDA events), peak {peak} B above what was "
+          f"allocated ({peak / max(n, 1):.1f} B a base; index "
+          f"{got.nbytes} B); cpu {cpu_s:.2f} s")
+    return got, want
+
+
+@contextlib.contextmanager
+def index_builds():
+    """Every build_index call in the block, wherever the pipeline, its
+    aligners or Eval make one (the name is wrapped in each module that
+    calls it): the caller's module, bases, k-mers, device and CUDA-event
+    ms go to the list the block gets, with the codes (`codes`) for
+    peak_of_builds."""
+    from aligngraph_tpu_torch.align import contig_aligner, read_aligner
+    from aligngraph_tpu_torch.evaluate import evaluate
+    from aligngraph_tpu_torch.ops import seeding
+    from aligngraph_tpu_torch.pipeline import driver, misassembly
+
+    mods = (driver, misassembly, contig_aligner, read_aligner, evaluate)
+    builds = []
+
+    def wrap(mod):
+        def build(codes, seed_len, *, device):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            index = seeding.build_index(codes, seed_len, device=device)
+            b.record()
+            torch.cuda.synchronize()
+            builds.append(dict(
+                caller=mod.__name__.rsplit(".", 1)[1], bases=len(codes),
+                kmers=index.sorted_kmers.shape[0],
+                device=index.sorted_kmers.device.type,
+                ms=round(a.elapsed_time(b), 2), codes=codes,
+                seed_len=seed_len))
+            return index
+        return build
+
+    for m in mods:
+        m.build_index = wrap(m)
+    try:
+        yield builds
+    finally:
+        for m in mods:
+            m.build_index = seeding.build_index
+
+
+def peak_of_builds(builds: list) -> list:
+    """Each recorded build run again on its codes on "cuda": its peak
+    device bytes above what was allocated before it (the same codes give
+    the same allocations) -> the records without their codes."""
+    out = []
+    for b in builds:
+        b = dict(b)
+        _, _, b["peak_bytes"] = timed_build(b.pop("codes"), b["seed_len"])
+        b["peak_b_a_base"] = round(b["peak_bytes"] / max(b["bases"], 1), 1)
+        out.append(b)
+    return out
+
+
 def kmer_build(wl: dict) -> dict:
     """Phase kmer: the device k-mer build against the host oracle on the
     first 4 chunks of the full workload's accepted records.  Returns the
@@ -1146,21 +1256,22 @@ def kmer_build(wl: dict) -> dict:
                                       build_contig_layer, build_kmer_layer)
     from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
     from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
-    from aligngraph_tpu_torch.ops.seeding import build_index
 
     cfg, reads, genome = wl["cfg"], wl["reads"], wl["genome"]
     k, iv = cfg.k_mer, cfg.insert_variation
-    t0 = time.perf_counter()
     gseq = np.asarray(genome.seq, np.int8)
-    index = build_index(gseq, cfg.seed_len)
-    ra = ReadAligner.from_index(gseq, index, cfg, device="cuda")
+    index_cuda_vs_cpu("kmer", "genome, seed 15", gseq, 15)
+    dev_index, index = index_cuda_vs_cpu("kmer", "genome, seed 13", gseq,
+                                         cfg.seed_len)
+    t0 = time.perf_counter()
+    ra = ReadAligner.from_index(gseq, dev_index, cfg, device="cuda")
     rali = ra.align(reads)
     # the driver's hand-off: the contig aligner seeds on the read
     # aligner's device index
     cali = ContigAligner(gseq, cfg, index=ra.index,
                          device="cuda").align(wl["contigs"])
     seeding_cuda_vs_cpu(ra, gseq, cfg, wl["contigs"], index)
-    del ra, index
+    del ra, index, dev_index
     # the driver's C13 filter; one part, so every record is in it
     ok = np.nonzero(rali.ratio_ok(THRESHOLD))[0][:KMER_CHUNKS * KMER_CHUNK]
     recs = dataclasses.replace(rali, **{
@@ -1637,7 +1748,8 @@ def big_genome(results: dict, work: Path, smi: str) -> None:
 
     class KeepIndex(real):
         """The driver's read aligner, its device seed index kept (the
-        driver drops the host index once the aligners hold this one)."""
+        driver drops its own name for the index once the aligners hold
+        it)."""
 
         @classmethod
         def from_index(cls, *args, **kw):
@@ -1902,6 +2014,32 @@ MASB_SPLITS = {
         "rc": {"split": 2, "whole": 14, "kept": 78, "absent": 0}}}
 
 
+# phase masb's seed index builds by caller: the alignment stage's,
+# refinement's (in its contig aligner), stage (5)'s over each file's
+# contigs and over the genome for each file, Eval's target
+MASB_BUILDS = {"driver": 1, "contig_aligner": 1, "misassembly": 4,
+               "evaluate": 1}
+
+
+def masb_index_builds(builds: list) -> None:
+    """Phase masb's seed index builds (index_builds), each on the card,
+    with its peak (peak_of_builds); then stage (5)'s index over
+    extended.fa's contigs and their N separators (misassembly's first
+    build) on "cuda" and on "cpu", every field equal."""
+    axis = next(b for b in builds if b["caller"] == "misassembly")
+    axis = (axis["codes"], axis["seed_len"])
+    off = [b["caller"] for b in builds if b["device"] != "cuda"]
+    callers = collections.Counter(b["caller"] for b in builds)
+    if off or callers != MASB_BUILDS:
+        raise AssertionError(f"masb: seed index builds by caller {callers}, "
+                             f"not {MASB_BUILDS}; off the card: {off}")
+    rows = peak_of_builds(builds)
+    builds.clear()
+    phase("masb", f"seed index builds on the card ({len(rows)}; ms of the "
+          f"run, peak bytes of the same build again): " + json.dumps(rows))
+    index_cuda_vs_cpu("masb", "stage (5)'s index over extended.fa", *axis)
+
+
 def masb_cuda_vs_cpu(work: Path) -> str:
     """remove_misassembly(..., which="remaining", chaff=...) over
     make_misassembly_workload(**MASB_CHECK)'s drafts on "cuda" and on
@@ -1996,7 +2134,7 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
     t0 = time.perf_counter()
-    with largest_chain_launch() as chain_run:
+    with largest_chain_launch() as chain_run, index_builds() as builds:
         res, launches, lanes, by_l = counted(
             lambda: run_pipeline(cfg, reads=reads, contigs=contigs,
                                  genome=genome, device="cuda"))
@@ -2033,7 +2171,9 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
             for w in ("extended", "remaining"):
                 f.write((work / f"{pre}{w}.fa").read_bytes())
     t0 = time.perf_counter()
-    index = genome_index(work / "target.fa").to("cuda")
+    with index_builds() as eval_builds:
+        index = genome_index(work / "target.fa", device="cuda")
+    builds += eval_builds
     phase("masb", f"Eval's target index, built once for the three Evals: "
           f"{time.perf_counter() - t0:.2f} s")
     evals, e_launches = {}, {n: 0 for n in results}
@@ -2122,6 +2262,7 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
     del chain_launches
     for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by"):
         results["chain"][key] = results["chain"]["shapes"][CHAIN_MAIN][key]
+    masb_index_builds(builds)
     phase("masb", masb_cuda_vs_cpu(work / "check"))
     phase("masb", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 

@@ -102,7 +102,7 @@ def rank_run(mesh, size: dict, work: str) -> dict:
     wl = cs.full_workload(Path(work) / f"rank{r}", **size)
     cfg, reads, genome = wl["cfg"], wl["reads"], wl["genome"]
     gseq = np.asarray(genome.seq, np.int8)
-    index = build_index(gseq, cfg.seed_len)
+    index = build_index(gseq, cfg.seed_len, device=dev)
     aligner = ReadAligner.from_index(gseq, index, cfg, device=dev)
     walls, out = {}, {}
 

@@ -24,6 +24,7 @@ from aligngraph_tpu.evaluate.evaluate import evaluate as jax_evaluate
 from aligngraph_tpu.io.formalize import Reads as JReads
 from aligngraph_tpu.io.formalize import formalize_contigs as j_contigs
 from aligngraph_tpu.io.formalize import formalize_genome as j_genome
+from aligngraph_tpu.ops.seeding import pack_kmers_np, rc_packed_np
 from aligngraph_tpu.pipeline.driver import run_pipeline as jax_run_pipeline
 from aligngraph_tpu_torch import bigscale, native, workload
 from aligngraph_tpu_torch.align import contig_aligner as ca
@@ -31,7 +32,6 @@ from aligngraph_tpu_torch.config import Config
 from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
 from aligngraph_tpu_torch.graph.model import GraphTensors
 from aligngraph_tpu_torch.io.formalize import formalize_genome
-from aligngraph_tpu_torch.ops.seeding import pack_kmers_np, rc_packed_np
 from aligngraph_tpu_torch.workload import make_bigscale_workload
 
 REPO = Path(__file__).resolve().parent.parent

@@ -95,7 +95,7 @@ def test_shared_index_equals_jax_and_is_not_copied():
     contigs = contigs_from_arrays(seqs)
     cfg = Config()
     jax_al = JaxAligner(genome, cfg)
-    index = build_index(genome, cfg.seed_len)
+    index = build_index(genome, cfg.seed_len, device="cpu")
     al = ContigAligner(genome, cfg, index=index, device="cpu")
     assert al.index is index
     for f in ("sorted_kmers", "sorted_posflip", "bucket_lo"):
@@ -129,7 +129,7 @@ def test_rejects_device_index_and_unknown_device(monkeypatch):
     is moved to the aligner's device once, an unknown device raises."""
     genome, _ = _exact()
     cfg = Config()
-    index = build_index(genome, 13)
+    index = build_index(genome, 13, device="cpu")
     with pytest.raises(ValueError, match="seed index on meta"):
         ContigAligner(genome, cfg, index=index.to("meta"), device="cpu")
     # a device with a contig-aligner path other than the index's: "meta"

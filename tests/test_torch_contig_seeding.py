@@ -9,6 +9,7 @@ import torch
 
 from aligngraph_tpu.align.contig_aligner import ContigAligner as JaxAligner
 from aligngraph_tpu.config import Config as JConfig
+from aligngraph_tpu.ops.seeding import pack_kmers_np, rc_packed_np
 from aligngraph_tpu_torch.align.contig_aligner import (ContigAligner,
                                                        query_segments)
 from aligngraph_tpu_torch.config import Config
@@ -144,9 +145,9 @@ def test_runs_of_64_kept_65_dropped(tmp_path):
     al, jal = assert_seeding_equals_jax(genome, contigs)
     sk = al.index.sorted_kmers.numpy()
     seq = contigs.chunk_seq(0)
-    packed, valid = seeding.pack_kmers_np(seq, 13)
+    packed, valid = pack_kmers_np(seq, 13)
     packed = packed[::al.stride][valid[::al.stride]]
-    pcan = np.minimum(packed, seeding.rc_packed_np(packed, 13))
+    pcan = np.minimum(packed, rc_packed_np(packed, 13))
     runs = (np.searchsorted(sk, pcan, side="right")
             - np.searchsorted(sk, pcan, side="left"))
     assert {64, 65} <= set(runs.tolist())
@@ -196,7 +197,7 @@ def test_flat_hits_split_by_offsets(monkeypatch):
 def test_run_bounds_equal_searchsorted(n):
     """run_bounds (bucket, or two bounded binary searches inside it) ==
     np.searchsorted's left and right sides on present and absent keys."""
-    idx = seeding.build_index(_genome(11, n), 13)
+    idx = seeding.build_index(_genome(11, n), 13, device="cpu")
     assert (idx.suffix_bits == 0) == (n > 1 << 20)
     sk = idx.sorted_kmers.numpy()
     rng = np.random.default_rng(12)

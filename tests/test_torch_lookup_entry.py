@@ -40,7 +40,7 @@ def test_lookup_seeds_equals_jax_and_bucketed(case):
         genome_rep[1000 + 200 * k:1000 + 200 * k + 100] = qs[0]
     for g in (genome, genome_rep):
         jidx = jsd.build_index(g, sl)
-        tidx = tsd.build_index(g, sl)
+        tidx = tsd.build_index(g, sl, device="cpu")
         pk, _, valid = jsd.pack_query_seeds(jnp.asarray(qs), sl, 8)
         pcan = jnp.minimum(pk, jsd.rc_packed(pk, sl))
         pcan_t = torch.from_numpy(np.array(pcan))

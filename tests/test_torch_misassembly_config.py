@@ -280,7 +280,7 @@ def test_eval_shared_index_and_stats(masb_runs):
     _finalize's counts."""
     _, _, tdir, _ = masb_runs
     target = tdir.parent / "target.fa"
-    index = genome_index(target)
+    index = genome_index(target, device="cpu")
     for name in ("remaining.fa", "corrected_remaining.fa"):
         st = {}
         got = evaluate(target, tdir / name, device="cpu", index=index,

@@ -10,7 +10,10 @@ import jax.numpy as jnp
 from aligngraph_tpu.align import read_aligner as jra
 from aligngraph_tpu.ops import seeding as jsd
 from aligngraph_tpu_torch.align import read_aligner as tra
+from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
+from aligngraph_tpu_torch.config import Config
 from aligngraph_tpu_torch.ops import seeding as tsd
+from aligngraph_tpu_torch.pipeline import misassembly
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,10 +63,95 @@ def assert_index_equal(got: tsd.SeedIndex, want: jsd.SeedIndex):
 def test_build_index_equals_jax(case):
     sl, n, n_rate = INDEX_CASES[case]
     genome = genome_with_ns(1, n, n_rate)
-    got = tsd.build_index(genome, sl)
+    got = tsd.build_index(genome, sl, device="cpu")
     want = jsd.build_index(genome, sl)
     assert_index_equal(got, want)
     assert (got.suffix_bits == 0) == (case == "direct_7")
+
+
+def contig_axis(seed, seed_len):
+    """Contigs end to end with SEP_N-base N separators after each, as
+    stage (5) and refinement join them: lengths from below seed_len to a
+    few thousand bases, one with an N run of its own."""
+    rng = np.random.default_rng(seed)
+    lens = [5, seed_len - 1, seed_len, 3_000, 64, 12_000, 700]
+    pieces = []
+    for ln in lens + list(rng.integers(100, 5_000, 20)):
+        c = rng.integers(0, 4, ln).astype(np.int8)
+        if ln == 12_000:
+            c[4_000:4_100] = 4
+        pieces += [c, np.full(misassembly.SEP_N, 4, np.int8)]
+    return np.concatenate(pieces)
+
+
+def genome_of_kmers(seed, seed_len, n_kmers):
+    """An N-free genome with exactly n_kmers valid windows."""
+    return genome_with_ns(seed, n_kmers + seed_len - 1)
+
+
+EDGE_CASES = {   # case -> (seed_len, genome, direct-addressed)
+    "axis_13": (13, lambda: contig_axis(7, 13), False),
+    "axis_15": (15, lambda: contig_axis(8, 15), False),
+    "shorter_than_seed": (13, lambda: genome_with_ns(9, 12), False),
+    "empty": (15, lambda: np.zeros(0, np.int8), False),
+    "all_n": (13, lambda: np.full(500, 4, np.int8), False),
+    "seed13_2^20-1_kmers": (13, lambda: genome_of_kmers(10, 13, (1 << 20) - 1),
+                            False),
+    "seed13_2^20_kmers": (13, lambda: genome_of_kmers(10, 13, 1 << 20), True),
+    "seed15_past_2^20_kmers": (15, lambda: genome_with_ns(11, 1_200_000,
+                                                          0.0005), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_build_index_edge_cases_equal_jax(case):
+    """N-separated contig axes, genomes with no valid window, both sides
+    of the switch to the direct table, and a bucketed table past 2^20
+    k-mers (search_steps > 0): every field equal to the JAX build's."""
+    sl, make, direct = EDGE_CASES[case]
+    genome = make()
+    got = tsd.build_index(genome, sl, device="cpu")
+    assert_index_equal(got, jsd.build_index(genome, sl))
+    assert (got.suffix_bits == 0) == direct
+    n_kmers = got.sorted_kmers.shape[0]
+    if case.startswith(("shorter", "empty", "all_n")):
+        assert n_kmers == 0 and got.bucket_lo.numel() > 1
+    else:
+        assert n_kmers > 1000
+    if case == "seed15_past_2^20_kmers":
+        assert n_kmers > 1 << 20 and got.search_steps > 0
+
+
+@pytest.mark.parametrize("seed_len", [1, 7, 13, 15])
+def test_pack_kmers_equals_jax(seed_len):
+    """The device pack (int32, one shift-or pass a base) == the JAX
+    package's int64 numpy pack, invalid windows' bits included."""
+    g = genome_with_ns(12, 3_000, 0.01)
+    packed, valid = tsd.pack_kmers(torch.from_numpy(g), seed_len)
+    want_p, want_v = jsd.pack_kmers_np(g, seed_len)
+    np.testing.assert_array_equal(valid.numpy(), want_v)
+    np.testing.assert_array_equal(packed.numpy(), want_p)
+
+
+def test_build_index_on_cpu_feeds_both_aligners():
+    """device="cpu" gives CPU tensors (from a numpy array or an int8
+    tensor alike), nbytes counts them, and both aligners take the index
+    as it is."""
+    cfg = Config()
+    g = genome_with_ns(13, 30_000, 0.001)
+    idx = tsd.build_index(g, cfg.seed_len, device="cpu")
+    same = tsd.build_index(torch.from_numpy(g), cfg.seed_len, device="cpu")
+    tensors = (idx.sorted_kmers, idx.sorted_posflip, idx.bucket_lo)
+    assert all(t.device.type == "cpu" for t in tensors)
+    assert_index_equal(same, jsd.build_index(g, cfg.seed_len))
+    assert idx.nbytes == sum(t.numel() * 4 for t in tensors)
+    ra = tra.ReadAligner.from_index(g, idx, cfg, device="cpu")
+    assert ra.index.sorted_kmers is idx.sorted_kmers
+    assert ra.index.bucket_lo is idx.bucket_lo
+    assert ContigAligner(g, cfg, index=idx, device="cpu").index is idx
+    built = ContigAligner(g, cfg, device="cpu").index
+    assert built.sorted_kmers.device.type == "cpu"
+    assert_index_equal(built, jsd.build_index(g, cfg.seed_len))
 
 
 def test_seed_index_from_numpy_carries_jax_index():
@@ -78,7 +166,7 @@ def test_build_index_rejects_bad_seed_len():
     g = genome_with_ns(0, 1000)
     for sl in (14, 17):
         with pytest.raises(ValueError):
-            tsd.build_index(g, sl)
+            tsd.build_index(g, sl, device="cpu")
 
 
 @pytest.mark.parametrize("seed_len,stride", [(13, 12), (15, 8), (7, 5)])
@@ -108,7 +196,7 @@ def test_lookup_seeds_bucketed_equals_jax(case):
         genome_rep[1000 + 200 * k:1000 + 200 * k + 100] = qs[0]
     for g in (genome, genome_rep):
         jidx = jsd.build_index(g, sl)
-        tidx = tsd.build_index(g, sl)
+        tidx = tsd.build_index(g, sl, device="cpu")
         pk, offs, valid = jsd.pack_query_seeds(jnp.asarray(qs), sl, 8)
         pcan = jnp.minimum(pk, jsd.rc_packed(pk, sl))
         want = jsd.lookup_seeds_bucketed(
