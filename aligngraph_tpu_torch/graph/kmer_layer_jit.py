@@ -23,14 +23,16 @@ in tests/test_torch_kmer_layer.py), as eager torch ops on `device`:
   - the state is int32 throughout: uint32 arrays travel as their int32
     view (NONE32 is -1 there), so the JAX build's enc/unpk are identities.
 
-A chunk's ops sync with the host where a compaction sizes its output (a
-handful per chunk); the graph state stays on the device across chunks and
-returns to the GraphTensors once, at the end.
+Phase 0 (normalize_records) runs on `device` too: the host gathers a
+chunk's records and uploads them, nothing more.  A chunk's ops sync with
+the host where a compaction sizes its output (a handful per chunk); the
+graph state stays on the device across chunks and returns to the
+GraphTensors once, at the end.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -587,101 +589,110 @@ def _cmpack(g: GraphTensors, device) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
-# phase 0, streamed: normalize_records' rows, a chunk at a time
+# phase 0 on the build's device: normalize_records' rows, a chunk at a time
 # ----------------------------------------------------------------------
 
-def _part_local(pm: np.ndarray, part_offset: int, part_len):
+def _part_local(pm: torch.Tensor, part_offset: int, part_len):
     """normalize_records' part-local positions of int32 genome positions:
     -1 where unaligned or outside [0, part_len)."""
-    p = np.where(pm >= 0, pm - np.int32(part_offset), np.int32(-1))
+    p = torch.where(pm >= 0, pm - part_offset, -1)
     if part_len is not None:
-        p = np.where((p >= 0) & (p < part_len), p, np.int32(-1))
+        p = torch.where((p >= 0) & (p < part_len), p, -1)
     return p
 
 
+def _gather(device, *arrays) -> List[torch.Tensor]:
+    """Each host array (already gathered, so contiguous) as a tensor on
+    `device`."""
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
 def phase0_skip(pairs, rows: np.ndarray, part_offset: int = 0,
-                part_len: Optional[int] = None) -> np.ndarray:
-    """[M] bool: normalize_records' duplicate-placement skip over the
-    records pairs[rows] (reference :1650-1655), from [M] arrays only: a
-    record is dropped when an earlier record of its pair has
-    |int32(b - pb)| < len, b the first base's part-local position
-    (0xFFFFFFFF when unaligned or outside the part)."""
-    M = len(rows)
-    keep = np.ones(M, bool)
+                part_len: Optional[int] = None, *, device) -> torch.Tensor:
+    """[M] bool on `device`: normalize_records' duplicate-placement skip
+    over the records pairs[rows] (reference :1650-1655).  A record is
+    dropped when an earlier record of its pair has |int32(b - pb)| < len,
+    b the first base's part-local position (0xFFFFFFFF when unaligned or
+    outside the part).  The host gathers three [M] arrays; the pairs'
+    stable order, their [groups, rank] grids and the loop over ranks run
+    on `device`."""
+    base, lens, pid = _gather(device, pairs.pos_map[rows, 0, 0],
+                              pairs.source_size[rows, 0],
+                              pairs.pair_id[rows])
+    M = pid.numel()
+    keep = torch.ones(M, dtype=torch.bool, device=pid.device)
     if not M:
         return keep
-    b = _part_local(pairs.pos_map[rows, 0, 0], part_offset,
-                    part_len).astype(np.int64)
-    base0 = np.where(b >= 0, b, 0xFFFFFFFF)
-    lens = pairs.source_size[rows, 0].astype(np.int64)
-    pid = pairs.pair_id[rows]
-    order = np.argsort(pid, kind="stable")
-    pid_s = pid[order]
-    newg = np.ones(M, bool)
-    newg[1:] = pid_s[1:] != pid_s[:-1]
-    starts = np.nonzero(newg)[0]
-    runlen = np.diff(np.concatenate([starts, [M]]))
-    rank = np.arange(M) - np.repeat(starts, runlen)
-    Rk = int(rank.max()) + 1
-    gid = np.cumsum(newg) - 1
-    b_d = np.zeros((len(starts), Rk), np.int64)
-    l_d = np.zeros((len(starts), Rk), np.int64)
+    b = _part_local(base, part_offset, part_len).to(I64)
+    base0 = torch.where(b >= 0, b, 0xFFFFFFFF)
+    order = torch.sort(pid, stable=True).indices
+    newg = _run_starts(pid[order])
+    idx = torch.arange(M, device=pid.device)
+    rank = idx - torch.cummax(torch.where(newg, idx, 0), 0).values
+    gid = torch.cumsum(newg, 0) - 1
+    G, Rk = (int(v) + 1 for v in torch.stack([gid[-1], rank.max()]).tolist())
+    b_d = torch.zeros((G, Rk), dtype=I64, device=pid.device)
+    l_d = torch.zeros_like(b_d)
     b_d[gid, rank] = base0[order]
-    l_d[gid, rank] = lens[order]
-    drop_d = np.zeros((len(starts), Rk), bool)
+    l_d[gid, rank] = lens[order].to(I64)
+    drop_d = torch.zeros((G, Rk), dtype=torch.bool, device=pid.device)
     for r in range(1, Rk):
         d = (b_d[:, r:r + 1] - b_d[:, :r]) & 0xFFFFFFFF
-        d[d >= 2**31] -= 2**32
-        drop_d[:, r] = (np.abs(d) < l_d[:, r:r + 1]).any(axis=1)
+        d = torch.where(d >= 2**31, d - 2**32, d)
+        drop_d[:, r] = (d.abs() < l_d[:, r:r + 1]).any(1)
     keep[order] = ~drop_d[gid, rank]
     return keep
 
 
-def phase0_rows(pairs, rows: np.ndarray, reads, k: int, skip: np.ndarray,
-                s: int, e: int, part_offset: int = 0,
-                part_len: Optional[int] = None):
-    """Rows [s, e) of normalize_records(pairs[rows], ...): (p1, p2, s1,
-    lens, keep) with mate 1 the leftmost, equal in value, as int32 p1,
-    p2 [e - s, L] and lens, int8 s1 and bool keep.  skip is
-    phase0_skip(pairs, rows, part_offset, part_len); only records
-    rows[s:e] are read."""
+def phase0_gather(pairs, rows: np.ndarray, reads, s: int, e: int, *,
+                  device) -> List[torch.Tensor]:
+    """What phase0_rows reads of records pairs[rows[s:e]], gathered on the
+    host and uploaded to `device`: int32 pos_map [c, 2, L], int32 lens
+    [c] (source_size of mate 1), int8 fr [c, 2] and the int8 reads of
+    both mates [c, 2, W] (reads.data may be a memmap)."""
     r = rows[s:e]
-    L = pairs.pos_map.shape[2]
-    lens = pairs.source_size[r, 0].astype(np.int32)
-    p = _part_local(pairs.pos_map[r], part_offset, part_len)
-    fr = pairs.fr[r]
     pid = pairs.pair_id[r]
-    col = np.arange(L)[None, :]
-    seqs = np.empty((len(r), 2, L), np.int8)
-    for mate in (0, 1):
-        raw = reads.data[2 * pid + mate]
-        if raw.shape[1] < L:
-            raw = np.concatenate(
-                [raw, np.full((len(r), L - raw.shape[1]), 4, np.int8)], 1)
-        # the reverse complement of the length-l prefix, left-aligned
-        rc = np.take_along_axis(_COMP[raw[:, ::-1]],
-                                np.clip(col + (L - lens)[:, None], 0, L - 1),
-                                axis=1)
-        rc = np.where(col < lens[:, None], rc, np.int8(4))
-        seqs[:, mate] = np.where(fr[:, mate, None] == 1, rc, raw[:, :L])
-    keep = (skip[s:e] & (fr[:, 0] != fr[:, 1])
-            & (p[:, 0] >= 0).any(axis=1) & (p[:, 1] >= 0).any(axis=1))
+    mates = reads.data[2 * pid[:, None] + np.arange(2, dtype=pid.dtype)]
+    return _gather(device, pairs.pos_map[r], pairs.source_size[r, 0],
+                   pairs.fr[r], mates)
+
+
+def phase0_rows(pm: torch.Tensor, lens: torch.Tensor, fr: torch.Tensor,
+                mates: torch.Tensor, skip: torch.Tensor, k: int,
+                part_offset: int = 0, part_len: Optional[int] = None):
+    """normalize_records' rows of one chunk, on the device of its inputs
+    (phase0_gather's, and the chunk's slice of phase0_skip): (p1, p2, s1,
+    lens, keep) with mate 1 the leftmost, equal in value, as int32 p1,
+    p2 [c, L] and lens, int8 s1 and bool keep: the tensors
+    `_chunk_update` takes."""
+    c, _, L = pm.shape
+    dev = pm.device
+    p = _part_local(pm, part_offset, part_len)
+    W = mates.shape[2]
+    if W < L:
+        mates = torch.cat([mates, torch.full((c, 2, L - W), 4,
+                                             dtype=mates.dtype, device=dev)],
+                          2)
+        W = L
+    col = torch.arange(L, device=dev)
+    # the reverse complement of the length-l prefix, left-aligned: column
+    # i is the complement of the base W-1-clip(i + L - l) of the read
+    src = (W - 1) - (col + (L - lens)[:, None]).clamp(0, L - 1)
+    comp = torch.from_numpy(_COMP).to(dev)
+    rc = comp[torch.gather(mates, 2, src[:, None].expand(c, 2, L)).long()]
+    rc = torch.where(col < lens[:, None, None], rc, 4)
+    seqs = torch.where(fr[:, :, None] == 1, rc, mates[:, :, :L])
+    keep = (skip & (fr[:, 0] != fr[:, 1])
+            & (p[:, 0] >= 0).any(1) & (p[:, 1] >= 0).any(1))
     p1, p2 = p[:, 0], p[:, 1]
     # leftmost-mate swap: the first index < len-k where both are aligned
     # decides (reference :1672-1679)
     both = (p1 >= 0) & (p2 >= 0) & (col < (lens - k)[:, None])
-    gt, lt = both & (p1 > p2), both & (p1 < p2)
-    first_gt = np.where(gt.any(1), gt.argmax(1), L)
-    first_lt = np.where(lt.any(1), lt.argmax(1), L)
+    first_gt = torch.where(both & (p1 > p2), col, L).amin(1)
+    first_lt = torch.where(both & (p1 < p2), col, L).amin(1)
     swap = (first_gt < first_lt)[:, None]
-    return (np.where(swap, p2, p1), np.where(swap, p1, p2),
-            np.where(swap, seqs[:, 1], seqs[:, 0]), lens, keep)
-
-
-def _upload(host, device):
-    """phase0_rows' arrays as the tensors `_chunk_update` takes, on
-    `device`."""
-    return [torch.from_numpy(a).to(device) for a in host]
+    return (torch.where(swap, p2, p1), torch.where(swap, p1, p2),
+            torch.where(swap, seqs[:, 1], seqs[:, 0]), lens, keep)
 
 
 def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
@@ -697,20 +708,23 @@ def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
 
     rows, when given, are the indices of the records of `pairs` to build
     from, in order (the part's accepted records): the build reads them
-    through it and copies none of `pairs`.  Phase 0 is streamed: the
-    duplicate-placement skip once over the records' [M] arrays
-    (phase0_skip), then each chunk's rows (phase0_rows) right before its
-    upload, so no [M, L] array of phase 0 exists.
+    through it and copies none of `pairs`.  Phase 0 runs on `device`: the
+    duplicate-placement skip once over the records (phase0_skip, from
+    three gathered [M] arrays), then for each chunk the host gathers and
+    uploads its records' rows (phase0_gather) and `device` computes
+    normalize_records' rows from them (phase0_rows), so no [M, L] array of
+    phase 0 exists and the host only gathers.
 
     chunk_records matches the host oracle's default: KmerBuildStats
     (groups, dropped_*) depend on the chunk boundaries, so the pipeline's
     kmer stats stay comparable when toggling cfg.graph_build.
 
     mark(name), when given, is called after each stage of the build:
-    "normalize" (the skip, on the host), "h2d" (the state, then each
-    chunk's phase 0 rows and their upload), the phases of
-    `_chunk_update`, and "d2h" (the state back in g).  chip_smoke.py
-    records a CUDA event there to split the build's time.
+    "normalize" (the skip), "h2d" (the state), then for each chunk
+    "gather" (its host gathers and upload), "phase0" (its rows) and the
+    phases of `_chunk_update`, and "d2h" (the state back in g).  The
+    driver and chip_smoke.py record a CUDA event there to split the
+    build's time.
     """
     if k > MAX_K:
         raise ValueError(f"k-mer size {k} > {MAX_K}: the 3-bit k-mer "
@@ -721,7 +735,7 @@ def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
     if M == 0:
         return st
     dev = torch.device(device)
-    skip = phase0_skip(pairs, rows, part_offset, g.part_len)
+    skip = phase0_skip(pairs, rows, part_offset, g.part_len, device=dev)
     if mark:
         mark("normalize")
     if pairs.pos_map.shape[2] - k <= 0:
@@ -738,12 +752,13 @@ def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
     dropped = torch.zeros(2, dtype=I64, device=dev)
     for s in range(0, M, chunk_records):
         e = min(s + chunk_records, M)
-        host = phase0_rows(pairs, rows, reads, k, skip, s, e, part_offset,
-                           g.part_len)
-        args = _upload(host, dev)
-        del host
+        got = phase0_gather(pairs, rows, reads, s, e, device=dev)
         if mark:
-            mark("h2d")
+            mark("gather")
+        args = phase0_rows(*got, skip[s:e], k, part_offset, g.part_len)
+        del got
+        if mark:
+            mark("phase0")
         tuples, rows_n, groups, dslots, dedges = _chunk_update(
             state, cmpack, *args, k=k, win=win, n_pos=n_pos, mark=mark)
         st.tuples += tuples

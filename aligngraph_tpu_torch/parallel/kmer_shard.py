@@ -156,12 +156,12 @@ def build_kmer_layer_sharded(g: GraphTensors, pairs, reads, k: int,
                              ) -> KmerBuildStats:
     """Drop-in for build_kmer_layer with the merge position-sharded over
     mesh (parallel/mesh.Mesh); every rank calls it together with the same
-    g, pairs and reads.  Phase 0 runs on the host of every rank: the
+    g, pairs and reads.  Phase 0 runs on mesh.device of every rank: the
     duplicate-placement skip over all records (kj.phase0_skip), then the
-    rows of the rank's slice of each chunk (kj.phase0_rows); phases 1-5
-    on mesh.device.  At the end the owners' blocks
-    are gathered on every rank and every rank's g holds the whole k-mer
-    layer; the statistics are summed over the ranks.
+    rows of the rank's slice of each chunk (kj.phase0_gather on the host,
+    kj.phase0_rows on the device); phases 1-5 too.  At the end the
+    owners' blocks are gathered on every rank and every rank's g holds
+    the whole k-mer layer; the statistics are summed over the ranks.
 
     chunk_records=None runs all records as one chunk (the JAX build's one
     step); chunk_records=c splits each chunk of c records across the
@@ -175,7 +175,7 @@ def build_kmer_layer_sharded(g: GraphTensors, pairs, reads, k: int,
         return st
     dev, S = mesh.device, mesh.world_size
     rows = np.arange(pairs.n)
-    skip = kj.phase0_skip(pairs, rows, part_offset, g.part_len)
+    skip = kj.phase0_skip(pairs, rows, part_offset, g.part_len, device=dev)
     if pairs.pos_map.shape[2] - k <= 0:
         return st
     n_pos = int(g.km_cnt.shape[0])
@@ -186,11 +186,11 @@ def build_kmer_layer_sharded(g: GraphTensors, pairs, reads, k: int,
     win = 2 * insert_variation + 5 * EP
     counts = torch.zeros(5, dtype=I64, device=dev)
     for s, a, b in _slices(pairs.n, chunk_records or pairs.n, S, mesh.rank):
-        host = kj.phase0_rows(pairs, rows, reads, k, skip, a, b,
-                              part_offset, g.part_len)
-        counts += _sharded_chunk(
-            mesh, state, cmpack, *kj._upload(host, dev), rec0=a - s, k=k,
-            win=win, n_pos=n_pos, n_local=n_local)
+        args = kj.phase0_rows(
+            *kj.phase0_gather(pairs, rows, reads, a, b, device=dev),
+            skip[a:b], k, part_offset, g.part_len)
+        counts += _sharded_chunk(mesh, state, cmpack, *args, rec0=a - s,
+                                 k=k, win=win, n_pos=n_pos, n_local=n_local)
     dist.all_reduce(counts, group=mesh.group)
     kj._state_to_graph({f: gather_blocks(mesh, state[f][:n_local])
                         for f in kj.STATE_FIELDS}, g)

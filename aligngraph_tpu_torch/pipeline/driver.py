@@ -277,14 +277,20 @@ def _graph_part(cfg: Config, p: int, lo: int, hi: int, genome: Genome,
     tst = time.time()
     phase0 = None
     if cfg.graph_build == "device":
+        mem.kmer_mark("start")
         build_kmer_layer_device(g, rali, reads, cfg.k_mer,
                                 cfg.insert_variation, part_offset=lo,
                                 stats=kstats, device=device,
                                 mark=mem.kmer_mark, rows=part_rows)
-        # phase 0's host bytes at most: the [M] bool skip and one chunk's
-        # rows (int32 p1, p2 and int8 s1 [c, L]; int32 lens, bool keep)
-        M = len(part_rows)
-        phase0 = M + min(CHUNK_RECORDS, M) * (9 * rali.pos_map.shape[2] + 5)
+        mem.kmer_split()
+        # phase 0's host bytes at most: the skip's three gathered [M]
+        # int32 arrays, or one chunk's gathered rows (int32 pos_map
+        # [c, 2, L] and int8 reads of both mates [c, 2, W]; int32 lens and
+        # pair ids, int8 fr [c, 2]), whichever is larger; the rest of
+        # phase 0 lies on the device
+        M, c = len(part_rows), min(CHUNK_RECORDS, len(part_rows))
+        phase0 = max(12 * M, c * (8 * rali.pos_map.shape[2]
+                                  + 2 * reads.data.shape[1] + 10))
     else:
         build_kmer_layer(g, _subset_pairs(rali, part_rows), reads,
                          cfg.k_mer, cfg.insert_variation, part_offset=lo,
@@ -328,13 +334,16 @@ class _StageMemory:
     "device_allocated_bytes": the bytes allocated at its end}; and
     stats["kmer_state_bytes"], per part built on a CUDA device, the bytes
     allocated between the k-mer build's start and the end of its first
-    "h2d" stage: the state and the anchor pack."""
+    "h2d" stage: the state and the anchor pack; and stats["kmer_split"],
+    per part built on a CUDA device, the build's CUDA-event ms by stage
+    (kmer_mark, kmer_split)."""
 
     def __init__(self, device, stats: Dict):
         self.cuda = torch.device(device).type == "cuda"
         self.out = stats.setdefault("memory", {})
         self.state = stats.setdefault("kmer_state_bytes", [])
-        self.base = None
+        self.split = stats.setdefault("kmer_split", [])
+        self.base, self.events = None, []
 
     def begin(self) -> None:
         if self.cuda:
@@ -356,10 +365,32 @@ class _StageMemory:
         self.out[stage] = rec
 
     def kmer_mark(self, name: str) -> None:
-        """build_kmer_layer_device's `mark`, after begin()."""
-        if self.cuda and name == "h2d" and self.base is not None:
+        """build_kmer_layer_device's `mark`, after begin(); called with
+        "start" just before the build.  On a CUDA device it records a
+        CUDA event, which kmer_split reads."""
+        if not self.cuda:
+            return
+        if name == "start":
+            self.events = []
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+        if name == "h2d" and self.base is not None:
             self.state.append(torch.cuda.memory_allocated() - self.base)
             self.base = None
+
+    def kmer_split(self) -> None:
+        """After the build on a CUDA device: the ms between each mark and
+        the one before it, summed by the later mark's name, appended to
+        stats["kmer_split"] (one dict a part)."""
+        if not self.cuda:
+            return
+        torch.cuda.synchronize()
+        split: Dict[str, float] = {}
+        for (_, a), (name, b) in zip(self.events, self.events[1:]):
+            split[name] = split.get(name, 0.0) + a.elapsed_time(b)
+        self.split.append(split)
+        self.events = []
 
 
 def graph_build_for(device, k_mer: int) -> str:

@@ -77,10 +77,12 @@ Phases, one line each, any failure raises (non-zero exit):
      and edge array and every build statistic equal; both walls and the
      peak device memory.  Then the device build over all accepted
      records (stats equal to HOST_KMER_STATS), split by CUDA events
-     (normalize = phase 0's duplicate skip on the host, h2d = each chunk's
-     phase 0 rows and their upload, emit = emission and expansion, group,
-     rounds, edges, d2h), and one chunk's wall, device busy time and top
-     10 CUDA ops under torch.profiler.
+     (normalize = phase 0's duplicate skip, h2d = the state's upload,
+     gather = each chunk's host gathers and upload, phase0 = its phase 0
+     rows on the card, emit = emission and expansion, group, rounds,
+     edges, d2h); phase 0 over all accepted records on "cuda" and on
+     "cpu", the skip and every chunk's rows equal; and one chunk's wall,
+     device busy time and top 10 CUDA ops under torch.profiler.
   multi: the multi-device paths (aligngraph_tpu_torch/parallel) in a
      world-size-1 NCCL group started in this process (file init under
      the temp dir, torn down at the end), on the objects of phases 4 and
@@ -151,7 +153,9 @@ Phases, one line each, any failure raises (non-zero exit):
      relocations and inversions; workload.make_misassembly_workload),
      after every earlier phase's objects are freed: run_pipeline on
      "cuda" with misassembly_removal=True, --part 1, the device k-mer
-     build (reads in memory, the rest through FASTA as bigscale.run),
+     build (reads in memory, the rest through FASTA as bigscale.run; its
+     split by CUDA events, stats["kmer_split"], beside the split with
+     phase 0 on the host, MASB_KMER_HOST_PHASE0),
      then Eval on "cuda", on one target index, of the drafts, of
      extended.fa + remaining.fa and of corrected_extended.fa +
      corrected_remaining.fa against the target, each with its aligner's
@@ -1039,6 +1043,9 @@ KM_FIELDS = ("km_cnt", "km_contig", "km_coff", "km_contig0", "km_coff0",
              "km_mate", "km_cov", "km_votes", "km_s", "km_slen", "ed_cnt",
              "ed_pos", "ed_item")
 KMER_CHUNK = 16_384
+# the device k-mer build's marks (build_kmer_layer_device's `mark`)
+KMER_STAGES = {"normalize", "h2d", "gather", "phase0", "emit", "group",
+               "rounds", "edges", "d2h"}
 # phase kmer holds the card's contig seeding to the CPU's again in
 # batches of this many seeds (the 4.6 Mb drafts' ~534 k seeds take 9)
 SMALL_SEED_BUDGET = 1 << 16
@@ -1244,6 +1251,38 @@ def peak_of_builds(builds: list) -> list:
     return out
 
 
+def phase0_cuda_vs_cpu(every, reads, k: int, part_len) -> str:
+    """Phase 0 of the device k-mer build over every record of `every` on
+    "cuda" and on "cpu": the duplicate-placement skip, then for each
+    chunk of KMER_CHUNK records (p1, p2, s1, lens, keep) from its host
+    gathers, each tensor's dtype and values equal (tolerance 0)."""
+    from aligngraph_tpu_torch.graph import kmer_layer_jit as kj
+
+    rows, devs = np.arange(every.n), ("cuda", "cpu")
+    t0 = time.perf_counter()
+    skip = {d: kj.phase0_skip(every, rows, 0, part_len, device=d)
+            for d in devs}
+    if not torch.equal(skip["cuda"].cpu(), skip["cpu"]):
+        raise AssertionError("phase 0's skip on cuda != cpu")
+    bad, n = [], 0
+    for s in range(0, every.n, KMER_CHUNK):
+        e = min(s + KMER_CHUNK, every.n)
+        out = {d: kj.phase0_rows(
+            *kj.phase0_gather(every, rows, reads, s, e, device=d),
+            skip[d][s:e], k, 0, part_len) for d in devs}
+        for name, a, b in zip(("p1", "p2", "s1", "lens", "keep"),
+                              out["cuda"], out["cpu"]):
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                bad.append((s, name))
+        n += 1
+    if bad:
+        raise AssertionError(f"phase 0 rows on cuda != cpu at (chunk "
+                             f"start, tensor) {bad[:10]}")
+    return (f"phase 0 over all {every.n} records on cuda == cpu: the skip "
+            f"({int((~skip['cpu']).sum())} dropped) and the rows of all "
+            f"{n} chunks, tolerance 0 ({time.perf_counter() - t0:.1f} s)")
+
+
 def kmer_build(wl: dict) -> dict:
     """Phase kmer: the device k-mer build against the host oracle on the
     first 4 chunks of the full workload's accepted records.  Returns the
@@ -1345,16 +1384,18 @@ def kmer_build(wl: dict) -> dict:
         split[name] = split.get(name, 0.0) + a.elapsed_time(b)
     phase("kmer", f"all {every.n} records ({-(-every.n // KMER_CHUNK)} "
           f"chunks): wall {wall:.3f} s; split, CUDA-event ms (normalize is "
-          f"phase 0's duplicate skip on the host, the card idle; h2d holds "
-          f"each chunk's phase 0 rows): " + ", ".join(
-              f"{n} {t:.2f}" for n, t in split.items()))
+          f"phase 0's duplicate skip, h2d the state's upload, gather each "
+          f"chunk's host gathers and upload, phase0 its rows on the card): "
+          + ", ".join(f"{n} {t:.2f}" for n, t in split.items()))
+    phase("kmer", phase0_cuda_vs_cpu(every, reads, k, g0.part_len))
 
     # one chunk's update: its wall, then torch.profiler's device time
     rows = np.arange(recs.n)
-    skip = kj.phase0_skip(recs, rows, 0, g0.part_len)
+    skip = kj.phase0_skip(recs, rows, 0, g0.part_len, device="cuda")
     cmpack = kj._cmpack(g0, "cuda")
-    args = kj._upload(kj.phase0_rows(recs, rows, reads, k, skip, 0,
-                                     KMER_CHUNK, 0, g0.part_len), "cuda")
+    args = kj.phase0_rows(
+        *kj.phase0_gather(recs, rows, reads, 0, KMER_CHUNK, device="cuda"),
+        skip[:KMER_CHUNK], k, 0, g0.part_len)
     win = 2 * iv + 5 * kj.EP
     n_pos = int(g0.km_cnt.shape[0])
 
@@ -2004,6 +2045,12 @@ MASB_EVAL = {
 MASB_KMER_STATS = {"tuples": 577_458_845, "rows": 1_155_449_911,
                    "groups": 583_659_817, "dropped_rank": 0,
                    "dropped_slots": 0, "dropped_edges": 0}
+# phase masb's k-mer build with phase 0 on the host (its numpy rows and
+# skip; scripts/kmer_split.py on NVIDIA H100 80GB HBM3, 700.00 W, see
+# PERF.md): the stage's seconds and its CUDA-event split, s
+MASB_KMER_HOST_PHASE0 = {"kmer_build": 51.99, "normalize": 0.58,
+                         "h2d": 36.77, "emit": 1.60, "group": 1.21,
+                         "rounds": 8.51, "edges": 1.74, "d2h": 1.56}
 MASB_SPLITS = {
     "extended": {"contigs_in": 367, "whole_safe": 367, "contigs_split": 0,
                  "pieces_out": 367},
@@ -2151,6 +2198,13 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
               f"{k} {v:.2f}" for k, v in st["alignment_threads"].items())
           + f"; read records {st['read_alignments']}, contig placements "
           f"{st['contig_placements']}; {smi}")
+    split = {n: round(v / 1e3, 2) for n, v in st["kmer_split"][0].items()}
+    if len(st["kmer_split"]) != 1 or set(split) != KMER_STAGES:
+        raise AssertionError(f"masb: k-mer build split {st['kmer_split']}, "
+                             f"not one part's {sorted(KMER_STAGES)}")
+    phase("masb", f"kmer_build {stage['kmer_build']:.2f} s, split by CUDA "
+          f"events (s) {split}; with phase 0 on the host "
+          f"{MASB_KMER_HOST_PHASE0}")
     for which, f in st["misassembly"].items():
         phase("masb", f"stage (5) {which}: " + ", ".join(
             f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"

@@ -235,8 +235,9 @@ def test_empty_and_bad_k():
 
 
 def test_marks_every_stage():
-    """The build calls mark(stage) after phase 0, the state's and each
-    chunk's upload, each phase of a chunk, and the state's download."""
+    """The build calls mark(stage) after phase 0's skip, the state's
+    upload, each chunk's gather and upload, its phase 0 rows, each phase
+    of a chunk, and the state's download."""
     make_graph, rali, reads = aligned_graph(21, n_pairs=8,
                                             genome_len=20_000,
                                             contigs="none")
@@ -245,5 +246,5 @@ def test_marks_every_stage():
     kj.build_kmer_layer_device(make_graph(), rali, reads, 5, 50,
                                chunk_records=chunk, device="cpu",
                                mark=names.append)
-    per_chunk = ["h2d", "emit", "group", "rounds", "edges"]
+    per_chunk = ["gather", "phase0", "emit", "group", "rounds", "edges"]
     assert names == ["normalize", "h2d"] + 2 * per_chunk + ["d2h"]

@@ -1,8 +1,10 @@
-"""The host memory of the port's big-genome path, on the CPU: the streamed
-phase 0 of the device k-mer build (kmer_layer_jit.phase0_skip and
-phase0_rows) against normalize_records, the JAX package's and the port's
-host copy; the build fed by the indices of a part's accepted records
-against the host oracle fed by their copy; the state's download into the
+"""The host memory of the port's big-genome path, on the CPU: phase 0 of
+the device k-mer build (kmer_layer_jit.phase0_skip, and per chunk
+phase0_gather on the host then phase0_rows on the device, here "cpu")
+against normalize_records, the JAX package's and the port's host copy;
+the build fed by the indices of a part's accepted records against the
+host oracle fed by their copy, its marks in order; the state's download
+into the
 graph's own arrays; and run_pipeline's lifetimes: the seed index and the
 aligners are gone before the first part's graph is made, each part's
 graph before the next one's; and scripts/contig_placements.py, which
@@ -46,15 +48,15 @@ def _few_threads():
 
 
 def synthetic_records(seed: int, n_pairs: int = 40, L: int = 24,
-                      read_w: int = 20):
-    """Records of n_pairs pairs, 1-4 records a pair in runs (so a pair's
-    records straddle chunk boundaries), reads of read_w < L bases,
-    source sizes 9..L, positions on [0, 8000) with unaligned runs, near
-    and across the part [1000, 6000), and both strands; a pair's later
-    records sometimes repeat an earlier one's first base within its
+                      read_w: int = 20, per_max: int = 4):
+    """Records of n_pairs pairs, 1 to per_max records a pair in runs (so
+    a pair's records straddle chunk boundaries), reads of read_w < L
+    bases, source sizes 9..L, positions on [0, 8000) with unaligned runs,
+    near and across the part [1000, 6000), and both strands; a pair's
+    later records sometimes repeat an earlier one's first base within its
     length, so the duplicate-placement skip drops some."""
     rng = np.random.default_rng(seed)
-    per = rng.integers(1, 5, n_pairs)
+    per = rng.integers(1, per_max + 1, n_pairs)
     pid = np.repeat(np.arange(n_pairs, dtype=np.int32), per)
     M = len(pid)
     start = rng.integers(0, 8000, M)
@@ -80,11 +82,26 @@ def synthetic_records(seed: int, n_pairs: int = 40, L: int = 24,
     return pairs, reads
 
 
+def streamed_phase0(pairs, rows, reads, k, chunk, off, plen):
+    """build_kmer_layer_device's phase 0 on "cpu": the skip, then each
+    chunk of `chunk` records gathered on the host and its rows computed
+    -> the chunks' (p1, p2, s1, lens, keep) concatenated, as numpy."""
+    skip = kj.phase0_skip(pairs, rows, off, plen, device="cpu")
+    got = []
+    for s in range(0, len(rows), chunk):
+        e = min(s + chunk, len(rows))
+        got.append(kj.phase0_rows(
+            *kj.phase0_gather(pairs, rows, reads, s, e, device="cpu"),
+            skip[s:e], k, off, plen))
+    return [torch.cat([c[i] for c in got]).numpy() for i in range(5)]
+
+
 @pytest.mark.parametrize("chunk", [1, 7, 16_384])
 def test_phase0_rows_equal_normalize_records(chunk):
-    """phase0_rows over chunks of `chunk` records gives normalize_records'
-    rows (the port's host copy and the JAX package's), for all records
-    and for an index subset of them, clipped to a part and not."""
+    """Phase 0 on "cpu" (phase0_skip, then phase0_gather and phase0_rows
+    over chunks of `chunk` records) gives normalize_records' rows (the
+    port's host copy and the JAX package's), for all records and for an
+    index subset of them, clipped to a part and not."""
     pairs, reads = synthetic_records(chunk)
     k = 5
     every = np.arange(pairs.n)
@@ -98,16 +115,99 @@ def test_phase0_rows_equal_normalize_records(chunk):
         for off, plen in ((1000, 5000), (0, None)):
             want = normalize_records(sub, reads, k, off, plen)
             jwant = j_normalize(jsub, jreads, k, off, plen)
-            skip = kj.phase0_skip(pairs, rows, off, plen)
-            got = [kj.phase0_rows(pairs, rows, reads, k, skip, s,
-                                  min(s + chunk, len(rows)), off, plen)
-                   for s in range(0, len(rows), chunk)]
+            got = streamed_phase0(pairs, rows, reads, k, chunk, off, plen)
             for i, name in enumerate(("p1", "p2", "s1", "lens", "keep")):
-                g = np.concatenate([c[i] for c in got])
-                np.testing.assert_array_equal(g, want[i], err_msg=name)
-                np.testing.assert_array_equal(g, jwant[i], err_msg=name)
+                np.testing.assert_array_equal(got[i], want[i], err_msg=name)
+                np.testing.assert_array_equal(got[i], jwant[i],
+                                              err_msg=name)
             assert 0 < want[4].sum() < len(rows)      # some dropped
-    assert (~kj.phase0_skip(pairs, every)).any()      # the skip fires
+    assert (~kj.phase0_skip(pairs, every, device="cpu")).any()  # it fires
+
+
+def skip_loop(pairs, off, plen):
+    """The reference's duplicate-placement skip record by record
+    (AlignGraph.cpp:1650-1655): a record is dropped when any earlier
+    record of its pair has |int32(b - pb)| < len, b the first base's
+    part-local position, 0xFFFFFFFF when unaligned or outside the part."""
+    def base(i):
+        b = int(pairs.pos_map[i, 0, 0])
+        b = b - off if b >= 0 else -1
+        ok = b >= 0 and (plen is None or b < plen)
+        return b if ok else 0xFFFFFFFF
+
+    keep, seen = [], {}
+    for i in range(pairs.n):
+        b, ln = base(i), int(pairs.source_size[i, 0])
+        prev = seen.setdefault(int(pairs.pair_id[i]), [])
+        d = [((b - pb) & 0xFFFFFFFF) for pb in prev]
+        keep.append(not any(abs(x - 2**32 if x >= 2**31 else x) < ln
+                            for x in d))
+        prev.append(b)
+    return np.array(keep)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_phase0_skip_equals_normalize_records(seed):
+    """phase0_skip on "cpu" with up to 8 records a pair, unaligned first
+    bases (0xFFFFFFFF: a record just inside the part after one of them is
+    within len of it once wrapped) and positions on both sides of the
+    part: equal to the reference's record-by-record skip, and with the
+    orientation and part tests to JAX's normalize_records keep mask."""
+    pairs, reads = synthetic_records(100 + seed, n_pairs=60, per_max=8)
+    rng = np.random.default_rng(seed)
+    off, plen = 1000, 5000
+    later = np.nonzero(pairs.pair_id[1:] == pairs.pair_id[:-1])[0] + 1
+    unal = later[rng.random(len(later)) < 0.3]
+    pairs.pos_map[unal - 1, 0, 0] = -1
+    # the base wraps: 0xFFFFFFFF then part-local 0..3, within len
+    pairs.pos_map[unal, 0, 0] = off + rng.integers(0, 4, len(unal))
+    pairs.pos_map[unal[::2], 0, 0] = -1         # both unaligned: d = 0
+    jpairs = JPairs(**{f.name: getattr(pairs, f.name)
+                       for f in dataclasses.fields(pairs)})
+    jreads = JReads(reads.n_pairs, reads.max_len, reads.data, reads.lengths)
+    every = np.arange(pairs.n)
+    for o, pl in ((off, plen), (0, None)):
+        skip = kj.phase0_skip(pairs, every, o, pl, device="cpu")
+        assert skip.dtype == torch.bool and skip.shape == (pairs.n,)
+        want = skip_loop(pairs, o, pl)
+        np.testing.assert_array_equal(skip.numpy(), want)
+        p = np.where(pairs.pos_map >= 0, pairs.pos_map - o, -1)
+        if pl is not None:
+            p = np.where((p >= 0) & (p < pl), p, -1)
+        jkeep = j_normalize(jpairs, jreads, 5, o, pl)[4]
+        np.testing.assert_array_equal(
+            skip.numpy() & (pairs.fr[:, 0] != pairs.fr[:, 1])
+            & (p[:, 0] >= 0).any(1) & (p[:, 1] >= 0).any(1), jkeep)
+        assert (~want[unal]).sum() >= len(unal) // 2    # the wrap drops
+    assert np.bincount(pairs.pair_id).max() > 4
+
+
+def test_phase0_rows_take_chunk_update_dtypes():
+    """phase0_gather and phase0_rows give, on the device they were given,
+    exactly what _chunk_update takes: int32 p1, p2 [c, L], int8 s1
+    [c, L], int32 lens [c], bool keep [c]; with reads narrower than L
+    padded with code 4 past them, and an empty chunk as empty tensors."""
+    pairs, reads = synthetic_records(3)
+    L, dev = pairs.pos_map.shape[2], torch.device("cpu")
+    rows = np.arange(pairs.n)
+    skip = kj.phase0_skip(pairs, rows, 1000, 5000, device=dev)
+    for s, e in ((0, 9), (5, 5)):
+        got = kj.phase0_gather(pairs, rows, reads, s, e, device=dev)
+        assert [t.shape for t in got] == [(e - s, 2, L), (e - s,),
+                                          (e - s, 2), (e - s, 2, 20)]
+        out = kj.phase0_rows(*got, skip[s:e], 5, 1000, 5000)
+        want = [(torch.int32, (e - s, L)), (torch.int32, (e - s, L)),
+                (torch.int8, (e - s, L)), (torch.int32, (e - s,)),
+                (torch.bool, (e - s,))]
+        assert [(t.dtype, tuple(t.shape)) for t in out] == want
+        assert all(t.device == dev for t in out)
+    # forward mates carry the read as it is, then code 4 past it
+    p1, p2, s1, lens, keep = kj.phase0_rows(
+        *kj.phase0_gather(pairs, rows, reads, 0, pairs.n, device=dev),
+        skip, 5, 1000, 5000)
+    fwd = (pairs.fr[:, 0] == 0) & (pairs.fr[:, 1] == 0)
+    assert fwd.any()
+    assert (s1.numpy()[fwd][:, 20:] == 4).all()
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +270,38 @@ def test_device_build_from_rows_equals_oracle(aligned, part, chunk,
     assert st_dev.tuples > 1000
 
 
+def test_device_build_marks_in_order(aligned):
+    """build_kmer_layer_device(..., device="cpu", rows=) over part 1's
+    accepted records in chunks of 150 equals the host oracle, all 13
+    arrays and the stats, and calls its marks in order: the skip, the
+    state, then each chunk's gather, phase 0 rows and update phases, then
+    the state back."""
+    ref, rali, reads = aligned
+    lo, hi = 10_000, len(ref)
+    acc = np.flatnonzero(rali.ratio_ok(THRESHOLD))
+    ts = rali.target_start[acc]
+    rows = acc[(ts[:, 0] >= lo) & (ts[:, 0] < hi)
+               & (ts[:, 1] >= lo) & (ts[:, 1] < hi)]
+    g_host, g_dev = part_graph(ref, lo, hi, True), part_graph(ref, lo, hi,
+                                                               True)
+    st_host = build_kmer_layer(g_host, driver._subset_pairs(rali, rows),
+                               reads, CFG.k_mer, CFG.insert_variation,
+                               part_offset=lo, chunk_records=150)
+    marks = []
+    st_dev = kj.build_kmer_layer_device(
+        g_dev, rali, reads, CFG.k_mer, CFG.insert_variation,
+        part_offset=lo, chunk_records=150, device="cpu", rows=rows,
+        mark=marks.append)
+    for f in KM_FIELDS:
+        np.testing.assert_array_equal(getattr(g_dev, f), getattr(g_host, f),
+                                      err_msg=f)
+    assert dataclasses.asdict(st_dev) == dataclasses.asdict(st_host)
+    n = -(-len(rows) // 150)
+    assert n > 1
+    assert marks == ["normalize", "h2d"] + [
+        "gather", "phase0", "emit", "group", "rounds", "edges"] * n + ["d2h"]
+
+
 def test_state_to_graph_in_place():
     """_state_to_graph writes every field into g's own array (the same
     object) with the values the state holds, wrapped to the field's
@@ -225,8 +357,9 @@ def test_pipeline_frees_each_stage(tmp_path, monkeypatch):
     """run_pipeline at 0.3 Mb, --part 2 (bigscale.run on the CPU): the
     seed index and the aligners are collected before part 1's graph is
     made, part 1's graph before part 2's; each stage records its RSS, the
-    live heap and the named arrays, phase 0's bytes those of the skip and
-    one chunk's rows, and the records are gone before refinement."""
+    live heap and the named arrays, phase 0's bytes the larger of the
+    skip's gathers and one chunk's gathered rows, and the records are gone
+    before refinement."""
     refs = {"graph": [], "aligner": []}
     seen = []
 
@@ -264,8 +397,8 @@ def test_pipeline_frees_each_stage(tmp_path, monkeypatch):
         "reads", "rali", "rali_pos_map", "cali", "graph", "part_rows",
         "phase0"}
     n = mem["kmer_build.1"]["arrays"]["part_rows"] // 8
-    assert mem["kmer_build.1"]["arrays"]["phase0"] == \
-        n + min(n, 16_384) * (2 * 4 * 100 + 100 + 4 + 1)
+    assert mem["kmer_build.1"]["arrays"]["phase0"] == max(
+        12 * n, min(n, 16_384) * (2 * 4 * 100 + 2 * 100 + 4 + 4 + 2))
     assert "rali_pos_map" not in mem["refinement"]["arrays"]
 
 
