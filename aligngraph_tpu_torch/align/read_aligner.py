@@ -21,17 +21,23 @@ Per batch of P pairs, on the aligner's device:
   7. the C13 ratio filter (c13_mask), then the accepted records compacted
      into one int32 buffer: dense per pair (pack_dense) when L <= 255 and
      distance_high <= 32,000, else per slot (pack_records)
-and on the host the buffer's decode (unpack_dense + _expand_dense, or
-unpack_records + _expand_packed).  A batch whose records overflow the
-buffer's capacities is decoded from the full [P, K] layout instead
-(_expand_full), which stays on the device until the batch's counts are
-read.
+  8. the buffer's decode (unpack_dense + _expand_dense, or unpack_records
+     + _expand_packed: fixed capacities, the records in (pair, k) order,
+     the parse quantities and pos_map rebuilt from the M-block segments)
+     into one int32 block of record rows, header first (count, overflow
+     flag; _row_table), and the block's copy into pinned host memory
+and on the host only the wait for the block, the copy of its records out
+(_copy_out) and the batches' concatenation.  A batch whose records
+overflow the buffer's capacities is decoded again on the device from the
+full [P, K] layout (_expand_full), which stays there until its flag is
+read, and its records come down in a second block.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -475,249 +481,318 @@ def compact(out: dict, P: int, *, c13: bool, dense: bool) -> torch.Tensor:
     return (pack_dense if dense else pack_records)(out, P, MAX_PAIR_HITS)
 
 
-def reconstruct_pos_map(segs: np.ndarray, L: int) -> np.ndarray:
-    """Host: segments [..., MAXSEG, 3] -> pos_map [..., L] int32."""
-    lead = segs.shape[:-2]
-    pm = np.full(lead + (L,), -1, np.int32)
-    idx = np.arange(L, dtype=np.int32)
+# PairAlignments' fields in order; pos_map, the widest, is the last
+RECORD_FIELDS = tuple(f.name for f in dataclasses.fields(PairAlignments))
+ROW_HEAD = 2          # a row block's header: record count, overflow flag
+
+
+def _field_shape(name: str, L: int) -> tuple:
+    """A record's shape of one PairAlignments field."""
+    return () if name == "pair_id" else (2, L) if name == "pos_map" else (2,)
+
+
+def row_width(L: int) -> int:
+    """Int32 columns of one record's row: every PairAlignments field's
+    values side by side, in field order (19 + 2L)."""
+    return sum(int(np.prod(_field_shape(f, L))) for f in RECORD_FIELDS)
+
+
+def reconstruct_pos_map(segs: torch.Tensor, L: int) -> torch.Tensor:
+    """Segments [..., MAXSEG, 3] -> pos_map [..., L] int32 on their
+    device; a later segment wins where two would cover one base."""
+    idx = torch.arange(L, dtype=torch.int32, device=segs.device)
+    pm = torch.full(segs.shape[:-2] + (L,), -1, dtype=torch.int32,
+                    device=segs.device)
     for s in range(segs.shape[-2]):
         st = segs[..., s, 0:1]
         ts = segs[..., s, 1:2]
         sz = segs[..., s, 2:3]
         m = (sz > 0) & (idx >= st) & (idx < st + sz)
-        pm = np.where(m, ts + (idx - st), pm)
+        pm = torch.where(m, ts + (idx - st), pm)
     return pm
 
 
-def _expand_full(res, start: int, cnt: int, L: int) -> dict:
-    """Host extraction of the accepted records from the full [P, K]
-    layout (pairs past `cnt` are batch padding)."""
-    p_ids, k_ids = np.nonzero(res["valid"][:cnt])
-    sel = (p_ids, k_ids)
-    return dict(
-        pair_id=(p_ids + start).astype(np.int32),
-        fr=res["fr"][sel],
-        score=res["score"][sel],
-        source_start=res["src_start"][sel],
-        source_end=res["src_end"][sel],
-        source_gap=res["src_gap"][sel],
-        source_size=res["src_size"][sel],
-        target_start=res["tgt_start"][sel],
-        target_end=res["tgt_end"][sel],
-        target_gap=res["tgt_gap"][sel],
-        pos_map=reconstruct_pos_map(res["segs"][sel], L),
-    )
+def _record_stats(segs: torch.Tensor, tgt_base: torch.Tensor,
+                  qlen: torch.Tensor) -> dict:
+    """The parse quantities from the records' full segment tables
+    [n, 2, MAXSEG, 3], with the exact integer formulas of
+    _candidate_stats -> dict of [n, 2] int32."""
+    sz = torch.where(segs[..., 2] > 0, segs[..., 2], 0)
+    match = sz.sum(dim=-1)
+    nseg = (sz > 0).sum(dim=-1).clamp_min(1)
+    last = (nseg - 1)[..., None]
+    ss = segs[..., 0, 0]
+    src_last = torch.gather(segs[..., 0], -1, last)[..., 0]
+    sz_last = torch.gather(sz, -1, last)[..., 0]
+    se = src_last + sz_last
+    ins = (se - ss) - match
+    tea = torch.gather(segs[..., 1], -1, last)[..., 0] + sz_last
+    dele = (tea - tgt_base) - match
+    i32 = torch.int32
+    return dict(source_start=ss.to(i32), source_end=se.to(i32),
+                source_gap=ins.to(i32), source_size=qlen.expand(ins.shape),
+                target_start=tgt_base,
+                target_end=(tgt_base + qlen + dele - ins).to(i32),
+                target_gap=dele.to(i32))
 
 
-def unpack_dense(buf: np.ndarray, P: int) -> dict:
-    """Host decode of the pack_dense buffer (zero-copy views)."""
+def _segment_table(seg1: torch.Tensor, tgt_base: torch.Tensor,
+                   first_size: torch.Tensor) -> torch.Tensor:
+    """[n + 1, 2, MAXSEG, 3] int32, -1-filled: each record's first
+    M-block (seg1 [n, 2, 2] = (ss, sz) per mate) with size `first_size`;
+    row n is a spare row that overflow entries of dropped records write."""
+    n = seg1.shape[0]
+    segs = torch.full((n + 1, 2, MAXSEG, 3), -1, dtype=torch.int32,
+                      device=seg1.device)
+    segs[:n, :, 0, 0] = seg1[..., 0]
+    segs[:n, :, 0, 1] = torch.where(seg1[..., 1] > 0, tgt_base, -1)
+    segs[:n, :, 0, 2] = first_size
+    return segs
+
+
+def _put_overflow(segs, tgt_base, orow, omate, oseg, src, dt, size):
+    """segs[orow, omate, oseg] = (src, tgt_base[orow, omate] + dt, size)
+    for the entries with orow >= 0; the others land in the spare last
+    row (fixed shapes, no host sync)."""
+    ok = orow >= 0
+    spare = segs.shape[0] - 1
+    omate = torch.where(ok, omate, 0)
+    oseg = torch.where(ok, oseg, 0)
+    tgt = tgt_base[orow.clamp_min(0), omate] + dt
+    segs[torch.where(ok, orow, spare), omate, oseg] = torch.stack(
+        [src, tgt, size], dim=-1)
+
+
+def unpack_dense(buf: torch.Tensor, P: int) -> dict:
+    """The pack_dense buffer's fields as views of it on its device; the
+    counts stay 0-d tensors, and "overflow" says whether they pass the
+    buffer's capacities."""
     E2, E3 = dense_capacities(P)
+    u8, i16 = torch.uint8, torch.int16
     o = 2
-    out = {"n_extras": int(buf[0]), "n_ovf": int(buf[1]), "dense": True}
-    out["meta"] = buf[o:o + P // 4].view(np.uint8); o += P // 4
-    out["score"] = buf[o:o + P].view(np.int16).reshape(P, 2); o += P
+    out = {"n_extras": buf[0], "n_ovf": buf[1]}
+    out["overflow"] = (buf[0] > E2) | (buf[1] > E3)
+    out["meta"] = buf[o:o + P // 4].view(u8); o += P // 4
+    out["score"] = buf[o:o + P].view(i16).view(P, 2); o += P
     out["tgt0"] = buf[o:o + P]; o += P
-    out["dt"] = buf[o:o + P // 2].view(np.int16); o += P // 2
-    out["seg"] = buf[o:o + P].view(np.uint8).reshape(P, 4); o += P
+    out["dt"] = buf[o:o + P // 2].view(i16); o += P // 2
+    out["seg"] = buf[o:o + P].view(u8).view(P, 4); o += P
     out["ex_id"] = buf[o:o + E2]; o += E2
-    out["ex_frp"] = buf[o:o + E2 // 4].view(np.uint8); o += E2 // 4
-    out["ex_score"] = buf[o:o + E2].view(np.int16).reshape(E2, 2); o += E2
-    out["ex_tgt"] = buf[o:o + 2 * E2].reshape(E2, 2); o += 2 * E2
-    out["ex_seg"] = buf[o:o + E2].view(np.uint8).reshape(E2, 4); o += E2
+    out["ex_frp"] = buf[o:o + E2 // 4].view(u8); o += E2 // 4
+    out["ex_score"] = buf[o:o + E2].view(i16).view(E2, 2); o += E2
+    out["ex_tgt"] = buf[o:o + 2 * E2].view(E2, 2); o += 2 * E2
+    out["ex_seg"] = buf[o:o + E2].view(u8).view(E2, 4); o += E2
     out["ov_id"] = buf[o:o + E3]; o += E3
-    out["ov_ss"] = buf[o:o + E3 // 2].view(np.uint8).reshape(E3, 2)
-    o += E3 // 2
-    out["ov_dt"] = buf[o:o + E3 // 2].view(np.int16); o += E3 // 2
+    out["ov_ss"] = buf[o:o + E3 // 2].view(u8).view(E3, 2); o += E3 // 2
+    out["ov_dt"] = buf[o:o + E3 // 2].view(i16); o += E3 // 2
     if o != buf.shape[0]:
         raise ValueError(f"dense buffer of {buf.shape[0]} words for "
                          f"P {P}: expected {o}")
     return out
 
 
-def _fill_overflow_segments(pm, rows, mates, src, size, tgt) -> None:
-    """pm[rows[e], mates[e], src[e]:src[e] + size[e]] = tgt[e] + 0, 1, ...
-    for every entry e (size > 0), as one scatter."""
-    size = size.astype(np.int64)
-    n = int(size.sum())
-    if n == 0:
-        return
-    rep = np.repeat(np.arange(len(size)), size)
-    off = np.arange(n) - np.repeat(np.cumsum(size) - size, size)
-    pm[rows[rep], mates[rep], src[rep] + off] = (tgt[rep] + off).astype(
-        np.int32)
-
-
-def _record_stats(segs, tgt_base, qlen) -> dict:
-    """The parse quantities from a record's full segment table, with the
-    exact integer formulas of _candidate_stats."""
-    sz = np.where(segs[..., 2] > 0, segs[..., 2], 0)
-    match = sz.sum(axis=-1)
-    nseg = np.maximum((sz > 0).sum(axis=-1), 1)
-    last = (nseg - 1)[..., None]
-    ss = segs[..., 0, 0]
-    src_last = np.take_along_axis(segs[..., 0], last, axis=-1)[..., 0]
-    sz_last = np.take_along_axis(sz, last, axis=-1)[..., 0]
-    se = src_last + sz_last
-    ins = (se - ss) - match
-    tea = np.take_along_axis(segs[..., 1], last, axis=-1)[..., 0] + sz_last
-    dele = (tea - tgt_base) - match
-    return dict(source_start=ss.astype(np.int32),
-                source_end=se.astype(np.int32),
-                source_gap=ins.astype(np.int32),
-                source_size=np.broadcast_to(qlen, ins.shape).copy(),
-                target_start=tgt_base,
-                target_end=(tgt_base + qlen + dele - ins).astype(np.int32),
-                target_gap=dele.astype(np.int32))
-
-
-def _first_segment_pos_map(seg1, tgt_base, L: int) -> np.ndarray:
-    """pos_map [n, 2, L] of each record's first M-block (seg1 [n, 2, 2]
-    = (ss, sz) per mate), -1 elsewhere: one vectorised pass."""
-    pm = np.arange(L, dtype=np.int32) - seg1[..., 0:1]    # offset in block
-    outside = pm.view(np.uint32) >= np.maximum(seg1[..., 1:2], 0).astype(
-        np.uint32)
-    pm += tgt_base[..., None]
-    np.copyto(pm, np.int32(-1), where=outside)
-    return pm
-
-
 def _expand_dense(res: dict, start: int, cnt: int, L: int,
-                  plens: np.ndarray) -> dict:
-    """Host extraction from the dense-per-pair buffer (the JAX package's
-    _expand_dense): the records in ascending (pair, k) order, the parse
-    quantities recomputed from the segments."""
+                  plens: torch.Tensor) -> tuple:
+    """The dense-per-pair buffer's records on its device (the JAX
+    package's _expand_dense): in ascending (pair, k) order, the parse
+    quantities recomputed from the segments.  Fixed capacity cnt + E2
+    rows; returns (fields, n): the first n rows are the records."""
     K = MAX_PAIR_HITS
+    i32, i64 = torch.int32, torch.int64
     meta = res["meta"]
-    has = (meta & 1) == 1
-    has[cnt:] = False
-    p1 = np.nonzero(has)[0]
-    k0 = (meta[p1].astype(np.int64) >> 4) & 7
-    n1 = len(p1)
+    P, E2 = meta.shape[0], res["ex_id"].shape[0]
+    dev = meta.device
+    pr = torch.arange(P, dtype=i64, device=dev)
+    has = ((meta & 1) == 1) & (pr < cnt)
+    k0 = (meta.to(i64) >> 4) & 7
+    ex_pk = res["ex_id"].to(i64) & ((1 << 30) - 1)
+    keep = (res["ex_id"] >= 0) & (ex_pk // K < cnt)
 
-    exm = res["ex_id"] >= 0
-    ex_pk = res["ex_id"][exm].astype(np.int64) & ((1 << 30) - 1)
-    ex_sel = np.nonzero(exm)[0]
-    keep = (ex_pk // K) < max(cnt, 0)
-    ex_sel, ex_pk = ex_sel[keep], ex_pk[keep]
-    n = n1 + len(ex_sel)
+    # record table in ascending (pair, k) order: a pair's primary has its
+    # lowest valid k, its extras the others; padding keys sort last
+    past = P * K
+    keys = torch.cat([torch.where(has, pr * K + k0, past),
+                      torch.where(keep, ex_pk, past)])
+    cap = cnt + E2
+    srt = torch.sort(keys, stable=True)
+    order, pk_of = srt.indices[:cap], srt.values[:cap]
+    real = pk_of < past
+    n = real.sum(dtype=i32)
+    pair = torch.where(real, torch.cat([pr, ex_pk // K])[order], 0)
+    frp = torch.cat([(meta.to(torch.int8) >> 1) & 3,
+                     res["ex_frp"].to(torch.int8) & 3])[order]
+    fr = torch.stack([frp & 1, (frp >> 1) & 1], dim=-1).to(torch.int8)
+    score = torch.cat([res["score"], res["ex_score"]])[order].to(i32)
+    tgt0 = res["tgt0"]
+    tgt_base = torch.cat([torch.stack([tgt0, tgt0 + res["dt"]], dim=-1),
+                          res["ex_tgt"]])[order]
+    seg1 = torch.cat([res["seg"], res["ex_seg"]])[order].to(i32).view(
+        cap, 2, 2)
+    segs = _segment_table(seg1, tgt_base,
+                          torch.where(seg1[..., 1] > 0, seg1[..., 1], -1))
 
-    # record table in ascending (pair, k) order: primary first (its k is
-    # the lowest valid k of the pair), then extras in flat (p, k) order
-    keys = np.concatenate([p1 * K + k0, ex_pk])
-    order = np.argsort(keys, kind="stable")
-    pair = np.concatenate([p1, ex_pk // K])[order]
-    pk_of = keys[order]
-    frp_all = np.concatenate([
-        (meta[p1].astype(np.int8) >> 1) & 3,
-        res["ex_frp"][ex_sel].astype(np.int8) & 3])[order]
-    fr = np.stack([frp_all & 1, (frp_all >> 1) & 1], axis=-1).astype(np.int8)
-    score = np.concatenate([
-        res["score"][p1], res["ex_score"][ex_sel]])[order].astype(np.int32)
-    tgt0_p = res["tgt0"][p1]
-    tgt_base = np.concatenate([
-        np.stack([tgt0_p, tgt0_p + res["dt"][p1]], axis=-1),
-        res["ex_tgt"][ex_sel]])[order].astype(np.int32)
-    seg1 = np.concatenate([res["seg"][p1], res["ex_seg"][ex_sel]]
-                          )[order].astype(np.int32).reshape(n, 2, 2)
+    # segment-overflow entries: (p*K + k)*16 + mate*8 + seg -> its row;
+    # a padding row's key points past the real ones, one slot each
+    rows = torch.arange(cap, dtype=i64, device=dev)
+    row_of = torch.full((past + cap,), -1, dtype=i64, device=dev)
+    row_of[torch.where(real, pk_of, past + rows)] = rows
+    ov_id = res["ov_id"].to(i64)
+    orow = torch.where(ov_id >= 0, row_of[(ov_id // 16).clamp(0, past - 1)],
+                       -1)
+    orem = ov_id % 16
+    ov_ss = res["ov_ss"].to(i32)
+    _put_overflow(segs, tgt_base, orow, orem // 8, orem % 8, ov_ss[:, 0],
+                  res["ov_dt"].to(i32), ov_ss[:, 1])
+    segs = segs[:cap]
 
-    # full segment table from seg1 + overflow entries
-    segs = np.full((n, 2, MAXSEG, 3), -1, np.int32)
-    segs[:, :, 0, 0] = seg1[..., 0]
-    segs[:, :, 0, 1] = np.where(seg1[..., 1] > 0, tgt_base, -1)
-    segs[:, :, 0, 2] = np.where(seg1[..., 1] > 0, seg1[..., 1], -1)
-    row_of = np.full(meta.shape[0] * K, -1, np.int64)
-    row_of[pk_of] = np.arange(n)
-    pm = _first_segment_pos_map(seg1, tgt_base, L)
-    om = res["ov_id"] >= 0
-    if om.any():
-        ov_id = res["ov_id"][om].astype(np.int64)
-        ov_sel = np.nonzero(om)[0]
-        orow = row_of[ov_id // 16]
-        ok_ = orow >= 0
-        orow, orem, ov_sel = orow[ok_], (ov_id % 16)[ok_], ov_sel[ok_]
-        omate, oseg = orem // 8, orem % 8
-        osrc = res["ov_ss"][ov_sel, 0].astype(np.int32)
-        osz = res["ov_ss"][ov_sel, 1].astype(np.int32)
-        otgt = tgt_base[orow, omate] + res["ov_dt"][ov_sel].astype(np.int32)
-        segs[orow, omate, oseg, 0] = osrc
-        segs[orow, omate, oseg, 1] = otgt
-        segs[orow, omate, oseg, 2] = osz
-        _fill_overflow_segments(pm, orow, omate, osrc, osz, otgt)
-
-    qlen = plens[pair][:, None].astype(np.int32)
-    return dict(pair_id=(pair + start).astype(np.int32), fr=fr, score=score,
-                **_record_stats(segs, tgt_base, qlen), pos_map=pm)
+    qlen = plens[pair][:, None]
+    return dict(pair_id=(pair + start).to(i32), fr=fr, score=score,
+                **_record_stats(segs, tgt_base, qlen),
+                pos_map=reconstruct_pos_map(segs, L)), n
 
 
-def unpack_records(buf: np.ndarray, P: int) -> dict:
-    """Host decode of the pack_records buffer (zero-copy views)."""
+def unpack_records(buf: torch.Tensor, P: int) -> dict:
+    """The pack_records buffer's fields as views of it on its device; the
+    counts stay 0-d tensors, and "overflow" says whether they pass the
+    buffer's capacities."""
     M, E = record_capacities(P)
+    i8, u8, i16 = torch.int8, torch.uint8, torch.int16
     o = 2
     out = {"n_valid": buf[0], "n_ovf": buf[1]}
+    out["overflow"] = (buf[0] > M) | (buf[1] > E)
     out["slot_id"] = buf[o:o + M]; o += M
-    out["frp"] = buf[o:o + M // 4].view(np.uint8); o += M // 4
-    out["score"] = buf[o:o + M].view(np.int16).reshape(M, 2); o += M
-    out["tgt_base"] = buf[o:o + 2 * M].reshape(M, 2); o += 2 * M
-    out["seg1"] = buf[o:o + 2 * M].view(np.int16).reshape(M, 2, 2)
-    o += 2 * M
+    out["frp"] = buf[o:o + M // 4].view(u8); o += M // 4
+    out["score"] = buf[o:o + M].view(i16).view(M, 2); o += M
+    out["tgt_base"] = buf[o:o + 2 * M].view(M, 2); o += 2 * M
+    out["seg1"] = buf[o:o + 2 * M].view(i16).view(M, 2, 2); o += 2 * M
     out["ovf_slot"] = buf[o:o + E]; o += E
-    out["ovf_ms"] = buf[o:o + E // 4].view(np.int8); o += E // 4
-    out["ovf_src"] = buf[o:o + E // 2].view(np.int16); o += E // 2
-    out["ovf_dt"] = buf[o:o + E // 2].view(np.int16); o += E // 2
-    out["ovf_sz"] = buf[o:o + E // 2].view(np.int16); o += E // 2
+    out["ovf_ms"] = buf[o:o + E // 4].view(i8); o += E // 4
+    out["ovf_src"] = buf[o:o + E // 2].view(i16); o += E // 2
+    out["ovf_dt"] = buf[o:o + E // 2].view(i16); o += E // 2
+    out["ovf_sz"] = buf[o:o + E // 2].view(i16); o += E // 2
     if o != buf.shape[0]:
         raise ValueError(f"per-slot buffer of {buf.shape[0]} words for "
                          f"P {P}: expected {o}")
     return out
 
 
-def _expand_packed(res, start: int, cnt: int, L: int,
-                   plens: np.ndarray) -> dict:
-    """Host extraction from the per-slot buffer (the JAX package's
-    _expand_packed): the parse quantities recomputed from the segments."""
+def _expand_packed(res: dict, start: int, cnt: int, L: int,
+                   plens: torch.Tensor) -> tuple:
+    """The per-slot buffer's records on its device (the JAX package's
+    _expand_packed), the parse quantities recomputed from the segments.
+    Fixed capacity M rows; returns (fields, n): the first n rows are the
+    records."""
     K = MAX_PAIR_HITS
+    i32, i64 = torch.int32, torch.int64
     slot = res["slot_id"]
-    sel = np.nonzero(slot >= 0)[0]
-    p_ids = slot[sel] // K
-    keep = p_ids < max(cnt, 0)
-    sel, p_ids = sel[keep], p_ids[keep]
-    n = len(sel)
+    M = slot.shape[0]
+    keep = (slot >= 0) & (slot // K < cnt)
+    sel = _valid_first(keep, M)                   # kept slots first
+    n = keep.sum(dtype=i32)
     # compact-row index -> output row (-1 dropped)
-    row_of = np.full(slot.shape[0], -1, np.int64)
-    row_of[sel] = np.arange(n)
+    row_of = torch.where(keep, torch.cumsum(keep, 0) - 1, -1)
+    p_ids = torch.where(keep[sel], slot[sel] // K, 0).to(i64)
 
-    frp = res["frp"][sel].astype(np.int8)
-    fr = np.stack([frp & 1, (frp >> 1) & 1], axis=-1).astype(np.int8)
-    score = res["score"][sel].astype(np.int32)
-    tgt_base = res["tgt_base"][sel].astype(np.int32)     # [n, 2]
-    seg1 = res["seg1"][sel].astype(np.int32)             # [n, 2, 2]
+    frp = res["frp"][sel].to(torch.int8)
+    fr = torch.stack([frp & 1, (frp >> 1) & 1], dim=-1).to(torch.int8)
+    score = res["score"][sel].to(i32)
+    tgt_base = res["tgt_base"][sel]                          # [M, 2]
+    seg1 = res["seg1"][sel].to(i32)                          # [M, 2, 2]
+    segs = _segment_table(seg1, tgt_base, seg1[..., 1])
+    ovf_slot = res["ovf_slot"]
+    orow = torch.where(ovf_slot >= 0, row_of[ovf_slot.clamp_min(0)], -1)
+    oms = res["ovf_ms"].to(i64)
+    _put_overflow(segs, tgt_base, orow, oms // 8, oms % 8,
+                  res["ovf_src"].to(i32), res["ovf_dt"].to(i32),
+                  res["ovf_sz"].to(i32))
+    segs = segs[:M]
 
-    # full segment table [n, 2, MAXSEG, 3] from seg1 + overflow entries
-    segs = np.full((n, 2, MAXSEG, 3), -1, np.int32)
-    segs[:, :, 0, 0] = seg1[..., 0]
-    segs[:, :, 0, 1] = np.where(seg1[..., 1] > 0, tgt_base, -1)
-    segs[:, :, 0, 2] = seg1[..., 1]
-    pm = _first_segment_pos_map(seg1, tgt_base, L)
-    om = res["ovf_slot"] >= 0
-    if om.any():
-        orow = row_of[res["ovf_slot"][om]]
-        okeep = orow >= 0
-        orow = orow[okeep]
-        oms = res["ovf_ms"][om][okeep].astype(np.int64)
-        omate, oseg = oms // 8, oms % 8
-        osrc = res["ovf_src"][om][okeep].astype(np.int32)
-        otgt = tgt_base[orow, omate] + res["ovf_dt"][om][okeep].astype(
-            np.int32)
-        osz = res["ovf_sz"][om][okeep].astype(np.int32)
-        segs[orow, omate, oseg, 0] = osrc
-        segs[orow, omate, oseg, 1] = otgt
-        segs[orow, omate, oseg, 2] = osz
-        _fill_overflow_segments(pm, orow, omate, osrc, osz, otgt)
+    qlen = plens[p_ids][:, None]
+    return dict(pair_id=(p_ids + start).to(i32), fr=fr, score=score,
+                **_record_stats(segs, tgt_base, qlen),
+                pos_map=reconstruct_pos_map(segs, L)), n
 
-    qlen = plens[p_ids][:, None].astype(np.int32)
-    return dict(pair_id=(p_ids + start).astype(np.int32), fr=fr,
-                score=score, **_record_stats(segs, tgt_base, qlen),
-                pos_map=pm)
+
+def _expand_full(out: dict, start: int, cnt: int, L: int) -> tuple:
+    """The accepted records of the full [P, K] layout on its device
+    (pairs past `cnt` are batch padding), in (pair, k) order.  Fixed
+    capacity cnt * K rows; returns (fields, n)."""
+    valid = out["valid"]
+    P, K = valid.shape
+    live = (valid & (torch.arange(P, device=valid.device)[:, None]
+                     < cnt)).reshape(-1)
+    sel = _valid_first(live, cnt * K)
+    p_ids, k_ids = sel // K, sel % K
+
+    def g(a):
+        return a[p_ids, k_ids]
+
+    return dict(
+        pair_id=(p_ids + start).to(torch.int32),
+        fr=g(out["fr"]),
+        score=g(out["score"]),
+        source_start=g(out["src_start"]),
+        source_end=g(out["src_end"]),
+        source_gap=g(out["src_gap"]),
+        source_size=g(out["src_size"]),
+        target_start=g(out["tgt_start"]),
+        target_end=g(out["tgt_end"]),
+        target_gap=g(out["tgt_gap"]),
+        pos_map=reconstruct_pos_map(g(out["segs"]), L),
+    ), live.sum(dtype=torch.int32)
+
+
+def _row_table(rec: dict, n, overflow) -> torch.Tensor:
+    """One int32 block on the records' device: ROW_HEAD header words (the
+    record count n, the overflow flag), then one row a record of capacity
+    (row_width columns, every field side by side in field order)."""
+    cap = rec["pair_id"].shape[0]
+    cols = [rec[f].reshape(cap, int(np.prod(rec[f].shape[1:])))
+            for f in RECORD_FIELDS]
+    width = sum(c.shape[1] for c in cols)
+    blk = torch.empty(ROW_HEAD + cap * width, dtype=torch.int32,
+                      device=rec["pair_id"].device)
+    blk[0] = n
+    blk[1] = overflow
+    rows = blk[ROW_HEAD:].view(cap, width)
+    col = 0
+    for c in cols:
+        rows[:, col:col + c.shape[1]] = c
+        col += c.shape[1]
+    return blk
+
+
+def _to_host(blk: torch.Tensor) -> tuple:
+    """(host block, event): a CUDA block's non-blocking copy into pinned
+    host memory, started behind an event; a CPU block as it is (None)."""
+    if blk.device.type != "cuda":
+        return blk, None
+    host = torch.empty(blk.shape, dtype=blk.dtype, pin_memory=True)
+    host.copy_(blk, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(blk.device))
+    return host, event
+
+
+def _copy_out(blk: np.ndarray, L: int) -> dict:
+    """Host: the first n rows of a row block (n its first header word) as
+    PairAlignments' fields, each copied into a numpy array of its own
+    (nothing keeps a view of the block): one strided pass for the narrow
+    fields' columns, one for pos_map, the last and widest."""
+    n = int(blk[0])
+    W = row_width(L)
+    rows = blk[ROW_HEAD:ROW_HEAD + n * W].reshape(n, W)
+    narrow = np.array(rows[:, :W - 2 * L])
+    out, col = {}, 0
+    for f in RECORD_FIELDS[:-1]:
+        shape = _field_shape(f, L)
+        w = int(np.prod(shape))
+        out[f] = np.array(narrow[:, col:col + w],
+                          dtype=np.int8 if f == "fr" else np.int32
+                          ).reshape((n,) + shape)
+        col += w
+    out["pos_map"] = np.array(rows[:, col:]).reshape(n, 2, L)
+    return out
 
 
 @dataclasses.dataclass
@@ -734,9 +809,12 @@ class ReadAligner:
     cfg: Config
     batch_pairs: int = 32768
     c13: bool = True
-    # the last align's batches by layout and bytes read (see align)
+    # the last align's batches by layout and bytes copied down, and its
+    # host seconds by step (see align)
     transfer: dict = dataclasses.field(default_factory=dict, init=False,
                                        repr=False)
+    split: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False)
 
     @classmethod
     def build(cls, genome_codes: np.ndarray, cfg: Config,
@@ -762,8 +840,8 @@ class ReadAligner:
         if index.genome_len != len(genome_codes):
             raise ValueError(f"index genome_len {index.genome_len} != "
                              f"genome length {len(genome_codes)}")
-        # align's host record extraction makes large numpy temporaries on
-        # every batch; with freed pages kept on the heap they are reused
+        # align copies every batch's records out into fresh numpy arrays;
+        # with freed pages kept on the heap they are reused
         # warm instead of faulted in afresh (utils/hostmem.py).  The host
         # times in PERF.md are taken with this setting.
         tune_host_malloc()
@@ -776,14 +854,19 @@ class ReadAligner:
     def align(self, reads: Reads) -> PairAlignments:
         """Align all pairs; returns the accepted pair alignments (host SoA).
 
-        Batch i + 1 is enqueued on the device before batch i's buffer is
-        decoded on the host, so at most two batches are in flight and the
-        device computes one while the host decodes the other.  Afterwards
-        self.transfer holds how many batches were decoded from the dense
-        buffer ("dense"), from the per-slot buffer ("per_slot") and from
-        the full layout after overflowing their buffer ("overflow"), and
-        the bytes the host read ("host_bytes": every batch's buffer, plus
-        an overflowing batch's full layout)."""
+        Each batch is aligned, compacted and decoded into one block of
+        record rows on the device; the host waits for the block's pinned
+        copy, copies its records out and, at the end, concatenates the
+        batches.  Batch i + 1 is enqueued before batch i is copied out, so
+        at most two batches are in flight.  Afterwards self.transfer holds
+        how many batches were decoded from the dense buffer ("dense"), from
+        the per-slot buffer ("per_slot") and from the full layout after
+        overflowing their buffer ("overflow"), and the bytes of the record
+        blocks copied to the host ("host_bytes": every batch's block at its
+        capacity, header included, plus an overflowing batch's second
+        block); self.split the host seconds, summed over the batches, in
+        the wait for a block ("wait_s"), in copying records out of it
+        ("copy_out_s") and in the final concatenation ("concat_s")."""
         cfg = self.cfg
         L = max(reads.max_len, cfg.seed_len)
         if L > 32767 - 2 * cfg.band_pad:
@@ -795,6 +878,7 @@ class ReadAligner:
         # the dense buffer's 8-bit source fields and int16 mate delta
         dense = L <= 255 and cfg.distance_high <= 32000
         self.transfer = dict(dense=0, per_slot=0, overflow=0, host_bytes=0)
+        self.split = dict(wait_s=0.0, copy_out_s=0.0, concat_s=0.0)
         n = reads.n_pairs
         chunks, inflight = [], collections.deque()
         for start in range(0, max(n, 1), self.batch_pairs):
@@ -809,17 +893,21 @@ class ReadAligner:
             inflight.append(self._enqueue(reads, start, cnt, P, L, smin,
                                           dense))
             if len(inflight) == 2:
-                chunks.append(self._decode(inflight.popleft(), L, dense))
+                chunks.append(self._decode(inflight.popleft(), L))
         while inflight:
-            chunks.append(self._decode(inflight.popleft(), L, dense))
-        cat = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+            chunks.append(self._decode(inflight.popleft(), L))
+        t0 = time.perf_counter()
+        cat = chunks[0] if len(chunks) == 1 else {
+            k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        self.split["concat_s"] += time.perf_counter() - t0
         return PairAlignments(**cat)
 
     def _enqueue(self, reads: Reads, start: int, cnt: int, P: int, L: int,
                  smin: torch.Tensor, dense: bool) -> dict:
         """Upload pairs [start, start + cnt) padded to P, align them, pack
-        the records and, on CUDA, start the buffer's copy into pinned host
-        memory behind an event.  Nothing here waits for the device."""
+        the records, decode the buffer into a block of record rows and, on
+        CUDA, start the block's copy into pinned host memory behind an
+        event.  Nothing here waits for the device."""
         cfg = self.cfg
         dev = self.genome_p.device
         cuda = dev.type == "cuda"
@@ -839,53 +927,58 @@ class ReadAligner:
             dlow=cfg.distance_low, dhigh=cfg.distance_high,
             mh=cfg.max_seed_hits)
         buf = compact(out, P, c13=self.c13, dense=dense)
-        event = None
-        if cuda:
-            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-            buf = host
-        # the full layout stays on the device until the counts are read
-        return dict(start=start, cnt=cnt, P=P, plens=plens.numpy(),
-                    out=out, buf=buf, event=event)
-
-    def _decode(self, batch: dict, L: int, dense: bool) -> dict:
-        """Wait for one batch's buffer, read its counts and decode it; a
-        batch over the buffer's capacities is decoded from its full
-        layout instead, as the JAX package re-runs it."""
-        _wait(batch["event"])
-        buf = batch["buf"].numpy()
-        start, cnt, P, plens = (batch["start"], batch["cnt"], batch["P"],
-                                batch["plens"])
-        t = self.transfer
-        t["host_bytes"] += buf.nbytes
         if dense:
             res = unpack_dense(buf, P)
-            E2, E3 = dense_capacities(P)
-            overflow = res["n_extras"] > E2 or res["n_ovf"] > E3
+            rec, n = _expand_dense(res, start, cnt, L, plens_d)
         else:
             res = unpack_records(buf, P)
-            M, E = record_capacities(P)
-            overflow = int(res["n_valid"]) > M or int(res["n_ovf"]) > E
-        if overflow:
+            rec, n = _expand_packed(res, start, cnt, L, plens_d)
+        blk, event = _to_host(_row_table(rec, n, res["overflow"]))
+        # the full layout stays on the device until the flag is read
+        return dict(start=start, cnt=cnt, dense=dense, out=out, blk=blk,
+                    event=event)
+
+    def _decode(self, batch: dict, L: int) -> dict:
+        """Wait for one batch's block, read its header and copy its records
+        out; a batch over its buffer's capacities is decoded again on the
+        device from its full layout (as the JAX package re-runs it), and
+        its records come down in a block of their own."""
+        t, sp = self.transfer, self.split
+        t0 = time.perf_counter()
+        _wait(batch["event"])
+        sp["wait_s"] += time.perf_counter() - t0
+        blk = batch["blk"].numpy()
+        t["host_bytes"] += blk.nbytes
+        if blk[1]:
             # more records or M-blocks than the buffer holds (heavy
             # multi-mapping or a very gappy batch); C13 is already in
             # out["valid"]
-            full = {k: v.cpu().numpy() for k, v in batch["out"].items()}
+            rec, n = _expand_full(batch["out"], batch["start"],
+                                  batch["cnt"], L)
+            host, event = _to_host(_row_table(rec, n, torch.zeros_like(n)))
+            t0 = time.perf_counter()
+            _wait(event)
+            sp["wait_s"] += time.perf_counter() - t0
+            blk = host.numpy()
+            t["host_bytes"] += blk.nbytes
             t["overflow"] += 1
-            t["host_bytes"] += sum(a.nbytes for a in full.values())
-            return _expand_full(full, start, cnt, L)
-        if dense:
-            t["dense"] += 1
-            return _expand_dense(res, start, cnt, L, plens)
-        t["per_slot"] += 1
-        return _expand_packed(res, start, cnt, L, plens)
+        else:
+            t["dense" if batch["dense"] else "per_slot"] += 1
+        t0 = time.perf_counter()
+        rec = _copy_out(blk, L)
+        sp["copy_out_s"] += time.perf_counter() - t0
+        return rec
+
+
+def read_split(aligner: ReadAligner) -> dict:
+    """The last align's host seconds by step, keyed for a stats dict:
+    reads_wait_s, reads_copy_out_s, reads_concat_s."""
+    return {f"reads_{k}": v for k, v in aligner.split.items()}
 
 
 def _wait(event) -> None:
-    """Block the host until a batch's buffer has reached it: its CUDA
+    """Block the host until a batch's block has reached it: its CUDA
     event (never a whole-device synchronise: other threads share the
-    card).  A CPU batch (event None) is complete when enqueued."""
+    card).  A CPU block (event None) is complete when enqueued."""
     if event is not None:
         event.synchronize()

@@ -26,8 +26,9 @@ reads, the wall, the walls, the index build, the warm-up, the records),
 the median wall and the aligned reads/s at the median, the launches and
 lanes of each hand-written kernel over the timed aligns (by kernel and
 read length, banded_sw_cuda.LAUNCHES_BY_L), the last timed align's batches
-by transfer layout and bytes read by the host (ReadAligner.transfer), the
-device and the card's
+by transfer layout and bytes copied to the host (ReadAligner.transfer)
+and its host seconds in the wait, the copy out and the concatenation
+(ReadAligner.split), the device and the card's
 name and power limit; and on CUDA a second "#" line with each kernel's
 device milliseconds over one more align under torch.profiler.
 
@@ -143,6 +144,7 @@ def run(n_pairs: int = 100_000, genome_len: int = 4_600_000,
     launches, lanes = dict(banded_sw_cuda.LAUNCHES), \
         dict(banded_sw_cuda.LANES)
     transfer = dict(aligner.transfer)       # the last timed align's
+    split = dict(aligner.split)
 
     aligned = 2 * len(np.unique(first.pair_id))
     best, med = min(walls), statistics.median(walls)
@@ -153,7 +155,8 @@ def run(n_pairs: int = 100_000, genome_len: int = 4_600_000,
         total_reads=2 * n_pairs, aligned=aligned, records=first.n,
         walls=walls, wall=best, median=med, rps_median=aligned / med,
         index_s=index_s, warm_s=warm_s, launches=launches, lanes=lanes,
-        launches_by_l=by_l, transfer=transfer, device=str(dev),
+        launches_by_l=by_l, transfer=transfer, split=split,
+        device=str(dev),
         card=nvidia_smi() if dev.type == "cuda" else None,
         kernel_ms=kernel_device_ms(aligner, reads, dev)
         if dev.type == "cuda" else None)
@@ -175,7 +178,8 @@ def main(device="cuda") -> int:
           f"index_build={rep['index_s']:.2f}s warmup={rep['warm_s']:.2f}s "
           f"records={rep['records']} launches_by_L="
           f"{json.dumps(rep['launches_by_l'])} "
-          f"transfer={json.dumps(rep['transfer'])} device={rep['device']} "
+          f"transfer={json.dumps(rep['transfer'])} "
+          f"split={json.dumps(rep['split'])} device={rep['device']} "
           f"card={rep['card']}", file=sys.stderr, flush=True)
     if rep["kernel_ms"] is not None:
         print("# kernel device ms over one more align (torch.profiler): "

@@ -50,7 +50,7 @@ from aligngraph_tpu_torch.io.formalize import (Contigs, Genome, Reads,
 from aligngraph_tpu_torch.utils import heap
 from aligngraph_tpu_torch.utils.log import stage_banner, get_logger, log_memory
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
-from aligngraph_tpu_torch.align.read_aligner import ReadAligner
+from aligngraph_tpu_torch.align.read_aligner import ReadAligner, read_split
 from aligngraph_tpu_torch.graph.kmer_layer_jit import (
     CHUNK_RECORDS, MAX_K, build_kmer_layer_device)
 from aligngraph_tpu_torch.ops.seeding import build_index
@@ -188,10 +188,11 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
             tc = time.time()
             c = ContigAligner(pseq, cfg, index=ra.index,
                               device=device).align(contigs)
-            del ra
             _part_stats(stats, p).update(
                 read_index_s=tb - t, reads_s=tc - tb, read_records=r.n,
-                contigs_s=time.time() - tc, contig_placements=c.n)
+                contigs_s=time.time() - tc, contig_placements=c.n,
+                **read_split(ra))
+            del ra
             off = int(genome.part_gstart[p])
             r.target_start += np.where(r.target_start >= 0, off, 0)
             r.target_end += np.where(r.target_end >= 0, off, 0)
@@ -223,7 +224,8 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
     stats["seed_index_bytes"] = index.nbytes
     r_aligner = ReadAligner.from_index(gseq, index, cfg, device=device)
     del index
-    # seconds of the index build and of each thread
+    # seconds of the index build and of each thread, then the read
+    # thread's host seconds by step (read_split)
     threads = stats["alignment_threads"] = {"index": time.time() - t}
     if genome.n_parts == 1:
         c_aligner = ContigAligner(gseq, cfg, index=r_aligner.index,
@@ -242,7 +244,10 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
     with _cf.ThreadPoolExecutor(max_workers=2) as ex:
         fut_r = ex.submit(timed, "reads", lambda: r_aligner.align(reads))
         fut_c = ex.submit(timed, "contigs", align_c)
-        return fut_r.result(), fut_c.result()
+        rali, cali = fut_r.result(), fut_c.result()
+    # the read thread's host seconds: waits, copies out, concatenation
+    threads.update(read_split(r_aligner))
+    return rali, cali
 
 
 def _graph_part(cfg: Config, p: int, lo: int, hi: int, genome: Genome,

@@ -40,7 +40,7 @@ from aligngraph_tpu_torch.graph.traverse import _overlap
 from aligngraph_tpu_torch.io.fasta import decode, write_fasta
 from aligngraph_tpu_torch.io.formalize import Contigs, Reads, formalize_contigs
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
-from aligngraph_tpu_torch.align.read_aligner import ReadAligner
+from aligngraph_tpu_torch.align.read_aligner import ReadAligner, read_split
 from aligngraph_tpu_torch.ops.seeding import build_index
 from aligngraph_tpu_torch.evaluate.evaluate import _close, _conflict
 from aligngraph_tpu_torch.parallel.coverage import span_coverage
@@ -89,11 +89,14 @@ def _coverage_from_reads(reads: Reads, contigs: Contigs, cfg: Config,
     index = build_index(axis, cfg.seed_len, device=device)
     stats["index_s"] = time.time() - t
     t = time.time()
-    ali = ReadAligner.from_index(axis, index, cfg, c13=False,
-                                 device=device).align(reads)
+    aligner = ReadAligner.from_index(axis, index, cfg, c13=False,
+                                     device=device)
+    ali = aligner.align(reads)
     del index
     stats["reads_s"] = time.time() - t
     stats["read_records"] = ali.n
+    stats.update(read_split(aligner))
+    del aligner
     t = time.time()
     # best alignment per pair only (bowtie2 -k 1 analog): first record
     first = np.concatenate(
@@ -322,7 +325,9 @@ def remove_misassembly(file_path: str, cfg: Config,
 
     stats, when given, gets the seconds of each step (index_s, reads_s,
     coverage_s, contig_index_s, contigs_s, placement_loops_s,
-    sweep_split_s), of the contig align's _finalize (finalize_s) and of
+    sweep_split_s), the read align's host seconds by step
+    (reads_wait_s, reads_copy_out_s, reads_concat_s: read_split), of the
+    contig align's _finalize (finalize_s) and of
     its steps (finalize_split), the read records, the placements and
     _finalize's counts (finalize_counts), and the counts:
     contigs_in (the contigs over 200 bp), whole_safe (kept whole: a

@@ -8,16 +8,16 @@ Runs the read-aligner benchmark workload (workload.make_workload,
 Config(distance_low=100, distance_high=900)) after two warm-up aligns:
 
   1. layers: `reps` aligns with each layer's function wrapped in a host
-     clock.  Host layers (the wait for a batch's buffer, the unpack and
-     expansion of each layout with its overflow-segment fills, and the
-     overflow branch's full-layout extraction and pos_map
-     reconstruction) are timed as they run; device layers (the reverse
-     complement, the whole _align_core and, inside it, seed lookup,
-     candidate selection, the DP fast path, segment extraction, then the
-     C13 filter and packing) synchronise the device before and after, so
-     each holds its own device work.  A layer that did not run reads 0
-     (the per-slot layers on this workload's dense batches, the overflow
-     branch when no batch overflows).
+     clock.  Host layers (the wait for a batch's block of records, and
+     the copy of its records out) are timed as they run; device layers
+     (the reverse complement, the whole _align_core and, inside it, seed
+     lookup, candidate selection, the DP fast path, segment extraction,
+     then the C13 filter and packing, the decode of each layout and,
+     inside it, the pos_map reconstruction, and the block of record
+     rows) synchronise the device before and after, so each holds its
+     own device work.  A layer that did not run reads 0 (the per-slot
+     decode on this workload's dense batches, the full layout's decode
+     when no batch overflows).
   2. walls: `reps` aligns with no wrapper.
   3. on CUDA, one align under torch.profiler: device busy time (the union
      of device op intervals), idle share = 1 - busy / wall, peak device
@@ -25,7 +25,8 @@ Config(distance_low=100, distance_high=900)) after two warm-up aligns:
 
 Prints one line per run and, last, one JSON object of every number (also
 written to DIR/profile_align.json when --out is given), with the last
-align's batches by layout and bytes read by the host (ReadAligner.transfer).
+align's batches by layout and bytes copied to the host
+(ReadAligner.transfer) and its host seconds by step (ReadAligner.split).
 """
 
 from __future__ import annotations
@@ -51,14 +52,13 @@ LAYERS = (
     ("banded_sw_posmap_auto", "dp_fast_path", True),
     ("_extract_segments", "extract_segments", True),
     ("compact", "c13_pack_device", True),
+    ("_expand_dense", "decode_dense_device", True),
+    ("_expand_packed", "decode_per_slot_device", True),
+    ("_expand_full", "decode_full_device", True),
+    ("reconstruct_pos_map", "reconstruct_pos_map_device", True),
+    ("_row_table", "row_table_device", True),
     ("_wait", "copy_wait_host", False),
-    ("unpack_dense", "unpack_dense_host", False),
-    ("_expand_dense", "expand_dense_host", False),
-    ("unpack_records", "unpack_per_slot_host", False),
-    ("_expand_packed", "expand_per_slot_host", False),
-    ("_fill_overflow_segments", "overflow_segment_fills_host", False),
-    ("_expand_full", "expand_full_host", False),
-    ("reconstruct_pos_map", "reconstruct_pos_map_host", False),
+    ("_copy_out", "copy_out_host", False),
 )
 
 
@@ -177,8 +177,9 @@ def main(argv=None) -> dict:
     for _ in range(args.reps):
         report["walls_s"].append(timed_align(aligner, reads, device)[1])
     report["transfer"] = dict(aligner.transfer)
+    report["split"] = dict(aligner.split)
     print("walls", [round(w, 4) for w in report["walls_s"]], "transfer",
-          report["transfer"], flush=True)
+          report["transfer"], "split", report["split"], flush=True)
     if device.type == "cuda":
         report["profile"] = device_profile(aligner, reads, device, args.out)
         print("profile", report["profile"], flush=True)

@@ -42,15 +42,20 @@ Phases, one line each, any failure raises (non-zero exit):
      more align under torch.profiler; every kernel must have launched.
      Each path prints its launches and lanes per kernel and read length
      L.  Prints the last timed align's batches by transfer layout (dense,
-     per-slot, overflowing) and the bytes the host read.
+     per-slot, overflowing), the bytes of the record blocks copied to the
+     host, and its host seconds in the waits, the copies out and the
+     concatenation (ReadAligner.split; the decode runs on the card).
   5. check: align on "cuda" and on "cpu" (the plain path), every
      PairAlignments field and the batches by layout equal: the first
      2,048 pairs in one batch; the first 4,096 in batches of 1,024
-     (dense buffers, each read after its event), and again with
-     distance_high 40,000 (per-slot buffers); the tandem-repeat genome
+     (dense buffers decoded on the card, each batch's block of records
+     read after its event), and again with distance_high 40,000
+     (per-slot buffers); the tandem-repeat genome
      (workload.make_tandem_workload, 2,048 pairs in batches of 1,024) at
      distance 150-750 and 150-40,000, where a batch must overflow its
-     buffer and be decoded from its full layout.
+     buffer and be decoded on the card from its full layout.  In each
+     layout the device decode runs once more under
+     torch.cuda.set_sync_debug_mode("error"): it must make no host sync.
   6. pipeline small: tests/test_pipeline.py's sim (seed 42, 30 kb, 3,000
      pairs, 10 contigs) through the CLI (aligngraph_tpu_torch.__main__.main)
      on "cuda" and on "cpu", with --misassemblyRemoval and with --part 2
@@ -159,8 +164,11 @@ Phases, one line each, any failure raises (non-zero exit):
      then Eval on "cuda", on one target index, of the drafts, of
      extended.fa + remaining.fa and of corrected_extended.fa +
      corrected_remaining.fa against the target, each with its aligner's
-     seconds (evaluate's stats): every stage's seconds, stage (5) by file
-     (index, read align, coverage, contig index, contig align, loops,
+     seconds (evaluate's stats): every stage's seconds, the read
+     thread's host seconds in waits, copies out and concatenation
+     (aligner.split, in stats["alignment_threads"]), stage (5) by file
+     (index, read align and its host split, coverage, contig index,
+     contig align, loops,
      sweep/split; contigs in, kept whole, split, pieces out), peak device
      and host memory per stage, launches per kernel and L, the ": part"
      headers and what became of each chimera (split, kept whole, one
@@ -811,6 +819,42 @@ def cuda_equals_cpu(label: str, genome, index, cfg, reads,
     return tr
 
 
+def decode_without_sync(label: str, genome, index, cfg, reads,
+                        batch: int) -> None:
+    """align on "cuda" with every step of the device decode (unpack_*,
+    _expand_dense, _expand_packed, _expand_full, _row_table, _to_host)
+    run under torch.cuda.set_sync_debug_mode("error"): a host sync in
+    any of them raises."""
+    from aligngraph_tpu_torch import ReadAligner
+    from aligngraph_tpu_torch.align import read_aligner as ra
+
+    names = ("unpack_dense", "unpack_records", "_expand_dense",
+             "_expand_packed", "_expand_full", "_row_table", "_to_host")
+    orig = {n: getattr(ra, n) for n in names}
+
+    def strict(fn):
+        def run(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    for n in names:
+        setattr(ra, n, strict(orig[n]))
+    try:
+        al = ReadAligner.from_index(genome, index, cfg, batch_pairs=batch,
+                                    device="cuda")
+        res = al.align(reads)
+    finally:
+        for n, fn in orig.items():
+            setattr(ra, n, fn)
+    phase("check", f"{label}: no host sync in the device decode of "
+          f"{reads.n_pairs} pairs in batches of {batch} ({res.n} records, "
+          f"batches {al.transfer})")
+
+
 def read_aligner_path(results: dict) -> dict:
     """Phases 4-5: the read aligner on the bench.py workload through
     aligngraph_tpu_torch.bench.run (3 timed aligns, which must give the
@@ -848,7 +892,9 @@ def read_aligner_path(results: dict) -> dict:
     tr = rep["transfer"]
     phase("reads", f"transfer of one align: {tr['dense']} dense, "
           f"{tr['per_slot']} per-slot, {tr['overflow']} overflowing "
-          f"batches; {tr['host_bytes']} B read by the host")
+          f"batches; {tr['host_bytes']} B of record blocks copied to the "
+          f"host; host seconds (aligner.split) " + ", ".join(
+              f"{k} {v:.4f}" for k, v in rep["split"].items()))
     if tr["dense"] + tr["per_slot"] + tr["overflow"] != -(-n_pairs // batch):
         raise AssertionError(f"batches by layout {tr}")
 
@@ -871,6 +917,7 @@ def read_aligner_path(results: dict) -> dict:
         got = cuda_equals_cpu(label, ref, index, c, sub, b)
         if got[layout] != -(-n // b):
             raise AssertionError(f"{label}: batches by layout {got}")
+        decode_without_sync(label, ref, index, c, sub, b)
     tg, tdata, tlens = make_tandem_workload()
     tindex = build_index(tg, cfg.seed_len, device="cuda")
     treads = Reads(len(tlens), tdata.shape[1], tdata, tlens)
@@ -880,6 +927,7 @@ def read_aligner_path(results: dict) -> dict:
         got = cuda_equals_cpu(label, tg, tindex, c, treads, 1024)
         if got["overflow"] < 1:
             raise AssertionError(f"{label}: no batch overflowed: {got}")
+        decode_without_sync(label, tg, tindex, c, treads, 1024)
     return dict(aligner=ctx["aligner"], reads=ctx["reads"], records=res,
                 walls=walls)
 
@@ -2198,6 +2246,15 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
               f"{k} {v:.2f}" for k, v in st["alignment_threads"].items())
           + f"; read records {st['read_alignments']}, contig placements "
           f"{st['contig_placements']}; {smi}")
+    threads = st["alignment_threads"]
+    phase("masb", f"read thread {threads['reads']:.2f} s, its host seconds "
+          f"(aligner.split): wait {threads['reads_wait_s']:.2f}, copy out "
+          f"{threads['reads_copy_out_s']:.2f}, concatenation "
+          f"{threads['reads_concat_s']:.2f}; stage (5)'s read aligns " + "; "
+          .join(f"{w} {f['reads_s']:.2f} s (wait {f['reads_wait_s']:.2f}, "
+                f"copy out {f['reads_copy_out_s']:.2f}, concatenation "
+                f"{f['reads_concat_s']:.2f}), {f['read_records']} records"
+                for w, f in st["misassembly"].items() if "reads_s" in f))
     split = {n: round(v / 1e3, 2) for n, v in st["kmer_split"][0].items()}
     if len(st["kmer_split"]) != 1 or set(split) != KMER_STAGES:
         raise AssertionError(f"masb: k-mer build split {st['kmer_split']}, "

@@ -92,8 +92,9 @@ def test_part1_equals_jax(inputs, jax_part1, tmp_path):
     assert sorted(parts) == [0, 1, 2]
     assert sum(p["kmer_records"] for p in parts.values()) > 0.8 * N_PAIRS
     assert all(p["contig_placements"] >= 1 for p in parts.values())
-    assert set(res.stats["alignment_threads"]) == {"index", "reads",
-                                                   "contigs"}
+    assert set(res.stats["alignment_threads"]) == {
+        "index", "reads", "contigs", "reads_wait_s", "reads_copy_out_s",
+        "reads_concat_s"}
 
 
 def test_part1_device_graph_build_equals_jax(inputs, jax_part1, tmp_path):

@@ -202,6 +202,9 @@ def test_port_sources_import_no_jax():
     scripts = re.compile(r"^\s*(import|from)\s+(bench|bench_pipeline)"
                          r"(\s|\.|$)", re.M)
     files = sorted((REPO / "aligngraph_tpu_torch").rglob("*.py"))
+    # and the port's own scripts that drive it on the card
+    port_scripts = [REPO / "scripts" / "read_split.py",
+                    REPO / "scripts" / "kmer_split.py"]
     assert {"contig_aligner.py", "driver.py", "misassembly.py",
             "refinement.py", "evaluate.py", "coverage.py",
             "__main__.py", "blat_cli.py", "kmer_layer_jit.py", "config.py",
@@ -212,7 +215,7 @@ def test_port_sources_import_no_jax():
             "dryrun.py", "bench.py", "bench_pipeline.py",
             "ecoli_scale.py", "profile_align.py",
             "profile_contig.py"} <= {f.name for f in files}
-    for f in files + [REPO / "chip_smoke.py"]:
+    for f in files + port_scripts + [REPO / "chip_smoke.py"]:
         text = f.read_text()
         assert not pat.search(text), f
         assert not pkg.search(text), f
@@ -231,15 +234,13 @@ def test_profile_align_reports_every_layer(tmp_path):
     labels = {label for _, label, _ in profile_align.LAYERS}
     layers = rep["layers"][0]
     assert set(layers) == labels
-    # two dense batches, none overflows: the per-slot layers and the
-    # overflow branch read 0, every other layer but the fills (reads with
-    # no indel may have no M-block past the first) ran
+    # two dense batches, none overflows: the per-slot decode and the
+    # full layout's read 0, every other layer ran
     assert rep["transfer"]["dense"] == 2 and rep["transfer"]["host_bytes"]
-    idle = {"unpack_per_slot_host", "expand_per_slot_host",
-            "expand_full_host", "reconstruct_pos_map_host"}
+    idle = {"decode_per_slot_device", "decode_full_device"}
     assert all(layers[k] == 0 for k in idle)
-    assert all(v > 0 for k, v in layers.items()
-               if k not in idle | {"overflow_segment_fills_host"})
+    assert all(v > 0 for k, v in layers.items() if k not in idle)
+    assert set(rep["split"]) == {"wait_s", "copy_out_s", "concat_s"}
     assert len(rep["walls_s"]) == 1 and rep["walls_s"][0] > 0
     assert (tmp_path / "profile_align.json").exists()
     # the wrappers are gone again

@@ -1,8 +1,11 @@
 """The read aligner's compact transfer path on the CPU against the JAX
 package, tolerance 0: the device reverse complement and C13 filter, the
-dense and per-slot buffers word for word, their host decoders field by
-field, and ReadAligner.align in the dense, per-slot and overflow cases."""
+dense and per-slot buffers word for word, their torch decoders (fixed
+capacities, through the row block and its copy out) field by field
+against JAX's host decoders, and ReadAligner.align in the dense, per-slot
+and overflow cases."""
 
+import dataclasses
 from functools import partial
 
 import numpy as np
@@ -17,6 +20,7 @@ from aligngraph_tpu.config import THRESHOLD, Config
 from aligngraph_tpu.io.formalize import Reads
 from aligngraph_tpu_torch import ReadAligner
 from aligngraph_tpu_torch.align import read_aligner as tra
+from aligngraph_tpu_torch.align.types import PairAlignments
 from aligngraph_tpu_torch.workload import make_tandem_workload
 from tests.simdata import make_simdata, mutate, random_genome, simulate_reads
 from tests.test_read_aligner import make_reads
@@ -182,49 +186,160 @@ def test_buffer_equals_jax_packed(batches, case, dense):
     np.testing.assert_array_equal(got, want)
     # accepted records, and M-blocks past the first where reads cross
     # indels
-    n_rec = (got[0] + (tra.unpack_dense(got, P)["meta"] & 1).sum()
-             if dense else got[0])
+    n_rec = (got[0] + int((tra.unpack_dense(torch.from_numpy(got), P)
+                           ["meta"] & 1).sum()) if dense else got[0])
     assert n_rec > 30
     if case == "indels_c13":
         assert got[1] > 10
 
 
+def host_records(rec: dict, n, L: int) -> dict:
+    """A torch decoder's (fields, n) as the aligner takes them to the
+    host: its row block, then the copy of the first n rows out."""
+    return tra._copy_out(tra._row_table(rec, n, 0).numpy(), L)
+
+
+def torch_full(full: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in full.items()}
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("dense", [True, False], ids=["dense", "per_slot"])
 def test_expand_equals_jax(batches, case, dense):
-    """The port's decoders on JAX's buffer give JAX's records field by
-    field, and the records of the full layout (_expand_full)."""
+    """The port's torch decoders on the CPU, fed JAX's buffer, give JAX's
+    records field by field, and so does the torch decode of the full
+    layout (_expand_full)."""
     b = batches[case]
     buf = jax_buffer(b, dense)
-    args = (b["start"], b["cnt"], b["L"], b["plens"])
+    args = (b["start"], b["cnt"], b["L"])
+    plens = torch.from_numpy(b["plens"])
     if dense:
-        want = jra._expand_dense(jra.unpack_dense(buf, P), *args)
-        got = tra._expand_dense(tra.unpack_dense(buf.copy(), P), *args)
+        want = jra._expand_dense(jra.unpack_dense(buf, P), *args, b["plens"])
+        got = tra._expand_dense(tra.unpack_dense(torch.from_numpy(buf), P),
+                                *args, plens)
     else:
-        want = jra._expand_packed(jra.unpack_records(buf, P), *args)
-        got = tra._expand_packed(tra.unpack_records(buf.copy(), P), *args)
+        want = jra._expand_packed(jra.unpack_records(buf, P), *args,
+                                  b["plens"])
+        got = tra._expand_packed(
+            tra.unpack_records(torch.from_numpy(buf), P), *args, plens)
+    got = host_records(*got, b["L"])
     assert_dicts_equal(got, want)
-    assert_dicts_equal(got, tra._expand_full(c13_full(b), *args[:3]))
+    full = c13_full(b)
+    assert_dicts_equal(host_records(*tra._expand_full(torch_full(full),
+                                                      *args), b["L"]), want)
+    assert_dicts_equal(jra._expand_full(full, *args), want)
     assert len(got["pair_id"]) > 30
 
 
-def test_overflow_segment_fills_equal_the_loop():
-    """_fill_overflow_segments' one scatter writes what JAX's per-entry
-    loop writes (_expand_dense :947-951), rows and mates repeating."""
-    rng = np.random.default_rng(4)
-    n, L, E = 40, 90, 300
-    rows = rng.integers(0, n, E)
-    mates = rng.integers(0, 2, E)
-    src = rng.integers(0, L, E).astype(np.int32)
-    size = np.minimum(rng.integers(1, 30, E), L - src).astype(np.int32)
-    tgt = rng.integers(0, 10_000, E).astype(np.int32)
-    want = np.full((n, 2, L), -1, np.int32)
-    for e in range(E):
-        want[rows[e], mates[e], src[e]:src[e] + size[e]] = (
-            tgt[e] + np.arange(size[e], dtype=np.int32))
-    got = np.full((n, 2, L), -1, np.int32)
-    tra._fill_overflow_segments(got, rows, mates, src, size, tgt)
-    np.testing.assert_array_equal(got, want)
+def synthetic_full(seed: int, cnt: int, L: int, dense: bool,
+                   n_records: int) -> tuple:
+    """A full [P, K] layout of random records -> (layout, plens).  About
+    0.7 of the P pairs hold a first hit (those past `cnt` too: batch
+    padding, which every decoder drops), and further hits are added
+    until the buffer's count reaches `n_records`: the extras past each
+    pair's first (dense) or all valid slots (per-slot).  A few mates
+    have up to four M-blocks, within the segment-overflow capacity; the
+    parse quantities follow from the segments."""
+    rng = np.random.default_rng(seed)
+    S = jra.MAXSEG
+    valid = np.zeros((P, K), bool)
+    hit = np.nonzero(rng.random(P) < 0.7)[0]
+    k0 = rng.integers(0, 2, len(hit))
+    valid[hit, k0] = True
+    free = [(p, k) for p, f in zip(hit, k0) for k in range(f + 1, K)]
+    more = n_records - (0 if dense else len(hit))
+    assert 0 <= more <= len(free)
+    for i in rng.choice(len(free), more, replace=False):
+        valid[free[i]] = True
+
+    segs = np.full((P, K, 2, S, 3), -1, np.int32)
+    fr = np.zeros((P, K, 2), np.int8)
+    score = np.zeros((P, K, 2), np.int32)
+    tgt = np.full((P, K, 2), -1, np.int32)
+    budget = (tra.dense_capacities(P)[1] if dense
+              else tra.record_capacities(P)[1]) * 3 // 4
+    for p, k in zip(*np.nonzero(valid)):
+        f = int(rng.integers(0, 2))
+        fr[p, k] = (f, 1 - f)
+        score[p, k] = rng.integers(10, 200, 2)
+        t0 = int(rng.integers(0, 1_000_000))
+        for m, base in enumerate((t0, t0 + int(rng.integers(-600, 600)))):
+            nseg = 1
+            if budget > 0 and rng.random() < 0.3:
+                nseg = int(rng.integers(2, 5))
+                budget -= nseg - 1
+            src, t = int(rng.integers(0, 10)), base
+            for s in range(nseg):
+                size = int(rng.integers(5, 20))
+                segs[p, k, m, s] = (src, t, size)
+                gs, gt = [(0, 1), (1, 0), (2, 1), (1, 2)][rng.integers(4)]
+                src, t = src + size + gs, t + size + gt
+        tgt[p, k] = segs[p, k, :, 0, 1]
+    plens = np.where(np.arange(P) < cnt, L, 0).astype(np.int32)
+
+    sz = np.where(segs[..., 2] > 0, segs[..., 2], 0)
+    match = sz.sum(-1)
+    last = (np.maximum((sz > 0).sum(-1), 1) - 1)[..., None]
+    ss = segs[..., 0, 0]
+    szl = np.take_along_axis(sz, last, -1)[..., 0]
+    se = np.take_along_axis(segs[..., 0], last, -1)[..., 0] + szl
+    ins = se - ss - match
+    dele = (np.take_along_axis(segs[..., 1], last, -1)[..., 0] + szl
+            - tgt - match)
+    qlen = np.broadcast_to(plens[:, None, None], ins.shape)
+    full = dict(valid=valid, fr=fr, score=score, src_start=ss, src_end=se,
+                src_gap=ins, src_size=qlen, tgt_start=tgt,
+                tgt_end=tgt + qlen + dele - ins, tgt_gap=dele, segs=segs)
+    return {k: np.ascontiguousarray(v, dtype=np.int8 if k == "fr" else
+                                    bool if k == "valid" else np.int32)
+            for k, v in full.items()}, plens
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", ["padding", "empty", "at_capacity",
+                                  "past_capacity"])
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "per_slot"])
+def test_fixed_capacity_decode_equals_jax(seed, case, dense):
+    """The torch decoders at their fixed capacities against JAX's host
+    decoders on synthetic buffers: padding pairs past cnt, an empty batch
+    (cnt 0), a buffer holding exactly its capacity of records (E2 extras,
+    or M slots) and one past it, where the overflow flag is set and the
+    full layout's decode takes over."""
+    L, start = 100, 4096
+    cnt = {"padding": 100, "empty": 0}.get(case, 120)
+    cap = (tra.dense_capacities(P)[0] if dense
+           else tra.record_capacities(P)[0])
+    n_records = {"at_capacity": cap, "past_capacity": cap + 1}.get(
+        case, cap // 2)
+    full, plens = synthetic_full(seed, cnt, L, dense, n_records)
+    if dense:
+        buf = np.array(jra._pack_dense(
+            {k: jnp.asarray(v) for k, v in full.items()}, P, K))
+        want = jra._expand_dense(jra.unpack_dense(buf, P), start, cnt, L,
+                                 plens)
+        res = tra.unpack_dense(torch.from_numpy(buf), P)
+        dec = tra._expand_dense
+    else:
+        # the port's pack_records equals JAX's per-slot buffer word for
+        # word (test_buffer_equals_jax_packed)
+        buf = tra.pack_records(torch_full(full), P, K).numpy()
+        want = jra._expand_packed(jra.unpack_records(buf, P), start, cnt, L,
+                                  plens)
+        res = tra.unpack_records(torch.from_numpy(buf), P)
+        dec = tra._expand_packed
+    assert buf[0] == n_records
+    assert bool(res["overflow"]) == (case == "past_capacity")
+    got = host_records(*dec(res, start, cnt, L, torch.from_numpy(plens)), L)
+    assert_dicts_equal(got, want)
+    got_full = host_records(*tra._expand_full(torch_full(full), start, cnt,
+                                              L), L)
+    assert_dicts_equal(got_full, jra._expand_full(full, start, cnt, L))
+    if case != "past_capacity":
+        assert_dicts_equal(got, got_full)
+    n = len(got_full["pair_id"])
+    assert n == 0 if case == "empty" else n >= n_records // 2
+    if n:
+        assert (got_full["pos_map"] >= 0).sum(-1).max() > 20
 
 
 def test_revcomp_padded_equals_np():
@@ -268,15 +383,15 @@ def test_device_c13_equals_host_filter():
                                       getattr(raw, f)[keep], err_msg=f)
 
 
-def dense_words(P: int) -> int:
-    E2, E3 = max(P // 8, min(256, P * K)), max(P // 4, min(256, P * K * 14))
-    return (2 + P // 4 + P + P + P // 2 + P + E2 + E2 // 4 + E2 + 2 * E2
-            + E2 + E3 + E3 // 2 + E3 // 2)
+def block_bytes(rows: int, L: int) -> int:
+    """Bytes of a row block of `rows` records at read length L."""
+    return 4 * (tra.ROW_HEAD + rows * (19 + 2 * L))
 
 
 def test_align_reads_one_buffer_a_batch(monkeypatch):
     """Three dense batches (tests/test_read_aligner.py:36's sim): the host
-    reads one int32 buffer a batch and never the full layout."""
+    gets one block of record rows a batch, at the dense capacity (the
+    batch's pairs plus E2 extras), and never the full layout's."""
     calls = []
     monkeypatch.setattr(tra, "_expand_full",
                         lambda *a: calls.append(a) or None)
@@ -287,8 +402,12 @@ def test_align_reads_one_buffer_a_batch(monkeypatch):
                            device="cpu")
     res = al.align(make_reads(sim))
     assert res.n > 250 and not calls
+    E2 = tra.dense_capacities(128)[0]
     assert al.transfer == dict(dense=3, per_slot=0, overflow=0,
-                               host_bytes=3 * 4 * dense_words(128))
+                               host_bytes=sum(block_bytes(cnt + E2, 100)
+                                              for cnt in (128, 128, 44)))
+    assert set(al.split) == {"wait_s", "copy_out_s", "concat_s"}
+    assert all(v >= 0 for v in al.split.values())
 
 
 def test_long_reads_take_per_slot():
@@ -333,3 +452,44 @@ def test_overflow_equals_jax(monkeypatch, dhigh, layout):
     assert t["dense" if layout == "per_slot" else "per_slot"] == 0
     # the repeat's pairs hold several records each
     assert np.bincount(got.pair_id)[800:1024].max() >= 4
+
+
+@pytest.mark.parametrize("dhigh,layout", [(750, "dense"),
+                                          (40_000, "per_slot")])
+def test_enqueue_decode_take_pair_alignments_dtypes(dhigh, layout):
+    """_enqueue then _decode on the CPU, batch by batch, on the tandem
+    workload: every batch's records come back in PairAlignments' fields,
+    dtypes and trailing shapes; the first batch overflows its buffer and
+    comes down in a second block of its full layout's records, the
+    second takes its layout's block."""
+    genome, data, lens = make_tandem_workload()
+    reads = Reads(len(lens), data.shape[1], data, lens)
+    cfg = Config(distance_low=150, distance_high=dhigh)
+    al = ReadAligner.build(genome, cfg, batch_pairs=1024, device="cpu")
+    al.transfer = dict(dense=0, per_slot=0, overflow=0, host_bytes=0)
+    al.split = dict(wait_s=0.0, copy_out_s=0.0, concat_s=0.0)
+    L = max(reads.max_len, cfg.seed_len)
+    smin = torch.from_numpy(tra.score_min_table(L))
+    empty = PairAlignments.empty(L)
+    names = [f.name for f in dataclasses.fields(PairAlignments)]
+    for start in (0, 1024):
+        batch = al._enqueue(reads, start, 1024, 1024, L, smin,
+                            layout == "dense")
+        assert batch["event"] is None and batch["blk"].dtype == torch.int32
+        rec = al._decode(batch, L)
+        blk = batch["blk"].numpy()
+        assert list(rec) == names
+        n = len(rec["pair_id"])
+        assert n > 0 and (rec["pair_id"] >= start).all()
+        for f in names:
+            want = getattr(empty, f)
+            assert rec[f].dtype == want.dtype, f
+            assert rec[f].shape == (n,) + want.shape[1:], f
+            assert rec[f].flags.c_contiguous, f
+            assert not np.shares_memory(rec[f], blk), f
+    rows = (1024 + tra.dense_capacities(1024)[0] if layout == "dense"
+            else tra.record_capacities(1024)[0])
+    assert al.transfer == {
+        "dense": int(layout == "dense"), "per_slot": int(layout != "dense"),
+        "overflow": 1,
+        "host_bytes": 2 * block_bytes(rows, L) + block_bytes(1024 * K, L)}
