@@ -114,8 +114,9 @@ def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
     when given, is genome_index(genome_path, cfg, device=) on the device
     or the CPU.  stats, when given, gets the contig aligner's seconds:
     index_s (its index build, or the index's upload), align_s and, of it,
-    finalize_s, split by step in finalize_split; and _finalize's counts,
-    finalize_counts (contig_aligner.finalize_placements)."""
+    finalize_s, split by step in finalize_split; _finalize's counts,
+    finalize_counts (contig_aligner.finalize_placements); and the align's
+    seconds by layer, layer_s (ContigAligner.layer_s)."""
     cfg = cfg or Config()
     stats = {} if stats is None else stats
     gids, gseqs = read_fasta(genome_path)
@@ -147,7 +148,8 @@ def evaluate(genome_path, contigs_path, out_path: Optional[str] = None,
     stats["align_s"] = time.perf_counter() - t
     stats.update(finalize_s=aligner.finalize_s,
                  finalize_split=aligner.finalize_split,
-                 finalize_counts=aligner.finalize_counts)
+                 finalize_counts=aligner.finalize_counts,
+                 layer_s=dict(aligner.layer_s))
     del aligner
 
     # E4/E5: per real contig placement lists with conflict resolution

@@ -164,9 +164,10 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
     """Stage (1): the reads' and the contigs' alignments.  The seed index
     and the aligners live in this function only, so the host and the
     device memory they hold is freed when it returns; the index's bytes
-    on its device go to stats["seed_index_bytes"].  Under --iterativeMap
-    each part's seconds and counts go to _part_stats instead, and the
-    bytes of the per-part records joined at the end to
+    on its device go to stats["seed_index_bytes"], the one-part contig
+    align's seconds by layer to stats["contig_align_layers"].  Under
+    --iterativeMap each part's seconds and counts go to _part_stats
+    instead, and the bytes of the per-part records joined at the end to
     stats["part_records_bytes"]."""
     if cfg.iterative_map and genome.n_parts > 1:
         # --iterativeMap: per-part read alignment (reference `task0`
@@ -247,6 +248,9 @@ def _align(cfg: Config, reads: Reads, contigs: Contigs, genome: Genome,
         rali, cali = fut_r.result(), fut_c.result()
     # the read thread's host seconds: waits, copies out, concatenation
     threads.update(read_split(r_aligner))
+    if genome.n_parts == 1:
+        # the contig thread's seconds by layer (ContigAligner.layer_s)
+        stats["contig_align_layers"] = dict(c_aligner.layer_s)
     return rali, cali
 
 

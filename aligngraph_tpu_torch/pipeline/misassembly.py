@@ -180,7 +180,8 @@ def _placements(contigs: Contigs, genome_codes: np.ndarray, cfg: Config,
     stats["placements"] = ali.n
     stats.update(finalize_s=aligner.finalize_s,
                  finalize_split=aligner.finalize_split,
-                 finalize_counts=aligner.finalize_counts)
+                 finalize_counts=aligner.finalize_counts,
+                 contigs_layer_s=dict(aligner.layer_s))
     del aligner
     t = time.time()
     for r in range(ali.n):
@@ -328,8 +329,9 @@ def remove_misassembly(file_path: str, cfg: Config,
     sweep_split_s), the read align's host seconds by step
     (reads_wait_s, reads_copy_out_s, reads_concat_s: read_split), of the
     contig align's _finalize (finalize_s) and of
-    its steps (finalize_split), the read records, the placements and
-    _finalize's counts (finalize_counts), and the counts:
+    its steps (finalize_split), the contig align's layers
+    (contigs_layer_s, ContigAligner.layer_s), the read records, the
+    placements and _finalize's counts (finalize_counts), and the counts:
     contigs_in (the contigs over 200 bp), whole_safe (kept whole: a
     placement covers >= 0.8 of it), contigs_split (written as two or more
     ": part<N>" pieces), pieces_out (the records written before the

@@ -13,32 +13,37 @@ that loads the kernels), then:
 
   1. layers: `reps` aligns, each layer timed on the host clock, the
      device synchronised around the layers that run on it:
-       seed          ContigAligner.seed_hits (the instance's, wrapped,
-                     the device synchronised around it): every chunk's
-                     and orientation's seeds looked up on the device in
-                     a few batched calls, the hits copied to the host
-       chain         contig_aligner._cluster_and_chain (the module's,
-                     wrapped; align looks it up at call time)
-       tile_jobs     the tile-job assembly inside align: align's wall
-                     less every other layer
+       seed          ContigAligner._seed (the instance's, wrapped): every
+                     chunk's and orientation's seeds looked up on the
+                     device in a few batched calls; the hits stay there
+       cluster       contig_aligner.cluster_hits (the module's, wrapped;
+                     align looks it up at call time): the hits sorted
+                     and cut into diagonal clusters on the device, the
+                     kept clusters' summaries copied to the host
+       chain         contig_aligner.chain_clusters (host): the greedy
+                     chains over the kept clusters, the placements
+       tile_diags    contig_aligner.build_tile_jobs: every placement's
+                     tile diagonals and the tile jobs on the device
        dp            _run_tile_jobs, replaced on the instance by
                      run_tile_jobs_timed, a copy of its loop with a clock
                      between its three parts (held to the module's
                      pos_map bytes by tests/test_torch_profile_contig.py):
-         windows_host     the batch's tiles, lengths, g0, destinations
-                          and genome windows built on the host
-         dp_device        their upload and banded_sw_posmap_auto, the
-                          device synchronised before and after
+         windows_device   the batch's tiles, lengths, g0, destinations
+                          and genome windows gathered on the device
+                          (TileJobs.batch)
+         dp_device        banded_sw_posmap_auto
          scatter          the position maps into the placements' buffer
                           on the device (Placements.scatter_tiles)
-       finalize      ContigAligner._finalize (the instance's, wrapped,
-                     the device synchronised around it): the placements
-                     finalized on the device; its split by step
-                     (contig_aligner.FINALIZE_STEPS) and counts are the
-                     layer run's "finalize_split" and "finalize_counts",
-                     and on CUDA the peak device bytes allocated during
-                     it above what was allocated before it
-                     "finalize_peak_bytes"
+       finalize      ContigAligner._finalize (the instance's, wrapped):
+                     the placements finalized on the device; its split
+                     by step (contig_aligner.FINALIZE_STEPS) and counts
+                     are the layer run's "finalize_split" and
+                     "finalize_counts", and on CUDA the peak device
+                     bytes allocated during it above what was allocated
+                     before it "finalize_peak_bytes"
+     The JAX script's chain is cluster + chain here, its other the job
+     build: align's wall less seed, cluster, chain, dp and finalize
+     (tile_diags and the segments' upload).
   2. walls: `reps` aligns with no wrapper; the kernels' launches and
      lanes by kernel and L (banded_sw_cuda.launches_by_length), and the
      chain DP's launches and placements ("chain"), over the first.
@@ -81,8 +86,8 @@ from aligngraph_tpu_torch.workload import cut_contigs, mutate_fast
 # contigs of the warm-up align
 WARM_CONTIGS = 16
 # the layers of one align, in the order they are printed
-LAYERS = ("seed", "chain", "tile_jobs", "dp", "windows_host", "dp_device",
-          "scatter", "finalize")
+LAYERS = ("seed", "cluster", "chain", "tile_diags", "dp", "windows_device",
+          "dp_device", "scatter", "finalize")
 
 
 def make_contigs(seqs) -> Contigs:
@@ -112,40 +117,22 @@ def _sync(device: torch.device) -> None:
 def run_tile_jobs_timed(ca, jobs, placements, totals: dict) -> None:
     """ContigAligner._run_tile_jobs(jobs, placements) on ca, line for line,
     with the seconds of each of its three parts added to totals
-    (windows_host, dp_device, scatter)."""
-    G = len(ca.genome_np)
-    W = 2 * cal.TILE_PAD
-    bs = ca.dp_batch
+    (windows_device, dp_device, scatter)."""
     dev = ca.device
-    for s in range(0, len(jobs), bs):
+    for s in range(0, jobs.n, ca.dp_batch):
+        _sync(dev)
         t0 = time.perf_counter()
-        blk = jobs[s:s + bs]
-        tiles = np.full((bs, cal.TILE), 4, np.int8)
-        tlens = np.zeros(bs, np.int32)
-        g0s = np.zeros(bs, np.int32)
-        dst = np.zeros(bs, np.int64)
-        for k, (pid, ts, tile, plen, g0) in enumerate(blk):
-            tiles[k] = tile
-            tlens[k] = plen
-            g0s[k] = np.clip(g0, -(2**30), 2**30)
-            dst[k] = placements.off[pid] + ts
-        x = g0s[:, None] - cal.TILE_PAD + np.arange(cal.TILE + W)[None, :]
-        ok = (x >= 0) & (x < G)
-        windows = np.where(ok, ca.genome_np[np.clip(x, 0, G - 1)],
-                           np.int8(4))
+        tiles, tlens, windows, g0s, dst = jobs.batch(s, ca.dp_batch)
         _sync(dev)
         t1 = time.perf_counter()
-        tiles_d, tlens_d, windows_d, g0s_d, dst_d = (
-            torch.from_numpy(a).to(dev)
-            for a in (tiles, tlens, windows, g0s, dst))
-        _, pm_d = cal.banded_sw_posmap_auto(tiles_d, tlens_d, windows_d,
-                                            g0s_d, pad=cal.TILE_PAD)
+        _, pm = cal.banded_sw_posmap_auto(tiles, tlens, windows, g0s,
+                                          pad=cal.TILE_PAD)
         _sync(dev)
         t2 = time.perf_counter()
-        placements.scatter_tiles(pm_d, dst_d, tlens_d)
+        placements.scatter_tiles(pm, dst, tlens)
         _sync(dev)
         t3 = time.perf_counter()
-        for name, a, b in (("windows_host", t0, t1), ("dp_device", t1, t2),
+        for name, a, b in (("windows_device", t0, t1), ("dp_device", t1, t2),
                            ("scatter", t2, t3)):
             totals[name] += b - a
 
@@ -156,6 +143,13 @@ def timed_align(ca, contigs, device):
     res = ca.align(contigs)
     _sync(device)
     return res, time.perf_counter() - t0
+
+
+# contig_aligner's functions that layer_align wraps: (layer, whether the
+# device is synchronised around it)
+MODULE_LAYERS = {"cluster_hits": ("cluster", True),
+                 "chain_clusters": ("chain", False),
+                 "build_tile_jobs": ("tile_diags", True)}
 
 
 def layer_align(ca, contigs, device) -> tuple:
@@ -194,21 +188,21 @@ def layer_align(ca, contigs, device) -> tuple:
         fin["peak_bytes"] = torch.cuda.max_memory_allocated(device) - base
         return out
 
-    chain = cal._cluster_and_chain
-    cal._cluster_and_chain = clocked(chain, "chain", False)
-    ca.seed_hits = clocked(ca.seed_hits, "seed", True)
+    module = {name: getattr(cal, name) for name in MODULE_LAYERS}
+    for name, (layer, sync) in MODULE_LAYERS.items():
+        setattr(cal, name, clocked(module[name], layer, sync))
+    ca._seed = clocked(ca._seed, "seed", True)
     ca._run_tile_jobs = clocked(jobs, "dp", True)
     ca._finalize = finalize_peak
     try:
         res, wall = timed_align(ca, contigs, device)
     finally:
-        cal._cluster_and_chain = chain
-        for name in ("seed_hits", "_run_tile_jobs", "_finalize"):
+        for name, fn in module.items():
+            setattr(cal, name, fn)
+        for name in ("_seed", "_run_tile_jobs", "_finalize"):
             del ca.__dict__[name]
     fin.update(split=dict(ca.finalize_split),
                counts=dict(ca.finalize_counts))
-    totals["tile_jobs"] = wall - sum(totals[k] for k in
-                                     ("seed", "chain", "dp", "finalize"))
     return res, wall, totals, fin
 
 
@@ -279,13 +273,15 @@ def main(argv=None) -> dict:
             report["finalize_counts"] = fin["counts"]
             st = totals
             # the JAX script's two lines: its dp is _run_tile_jobs, its
-            # other the tile-job assembly
+            # chain cluster + chain, its other the tile-job build
+            chain = st["cluster"] + st["chain"]
+            other = wall - st["seed"] - chain - st["dp"] - st["finalize"]
             print(f"genome={args.mb}Mb contigs={len(seqs)} "
                   f"placements={res.n} backend={device}")
             print(f"index_build={index_s:.1f}s align_wall={wall:.1f}s "
-                  f"seed={st['seed']:.1f}s chain={st['chain']:.1f}s "
+                  f"seed={st['seed']:.1f}s chain={chain:.1f}s "
                   f"dp={st['dp']:.1f}s finalize={st['finalize']:.1f}s "
-                  f"other={st['tile_jobs']:.1f}s", flush=True)
+                  f"other={other:.1f}s", flush=True)
         print("layers", round(wall, 4),
               {k: round(v, 4) for k, v in totals.items()}, flush=True)
         print("finalize split", {k: round(v, 4)

@@ -76,7 +76,13 @@ Phases, one line each, any failure raises (non-zero exit):
      chunks in both orientations on "cuda" and on "cpu" (offsets, qpos,
      tpos equal, and again on the card in batches of 2^16 seeds; seeds,
      hits, batches, device bytes reckoned and peak, the card's CUDA-event
-     ms); the contig layer, then the first 4 chunks of
+     ms); the contig aligner's tile jobs on "cuda" and on "cpu"
+     (ContigAligner.tile_jobs: every job's placement, tile start, length,
+     g0, destination and source, every placement's chunk, orientation
+     and length, and every DP batch's tiles and windows equal; both
+     calls' ms and the card's host syncs by layer under
+     torch.cuda.set_sync_debug_mode("warn")); the contig layer, then the
+     first 4 chunks of
      16,384 accepted records through the host oracle (build_kmer_layer,
      numpy) and through build_kmer_layer_device on "cuda": every k-mer
      and edge array and every build statistic equal; both walls and the
@@ -164,7 +170,9 @@ Phases, one line each, any failure raises (non-zero exit):
      then Eval on "cuda", on one target index, of the drafts, of
      extended.fa + remaining.fa and of corrected_extended.fa +
      corrected_remaining.fa against the target, each with its aligner's
-     seconds (evaluate's stats): every stage's seconds, the read
+     seconds (evaluate's stats) and each contig align's seconds by layer
+     (ContigAligner.layer_s: the alignment stage's contig thread, stage
+     (5)'s two, each Eval's): every stage's seconds, the read
      thread's host seconds in waits, copies out and concatenation
      (aligner.split, in stats["alignment_threads"]), stage (5) by file
      (index, read align and its host split, coverage, contig index,
@@ -1168,6 +1176,108 @@ def seeding_cuda_vs_cpu(ra, gseq, cfg, contigs, index) -> None:
           f"in {n_small} batches of {SMALL_SEED_BUDGET} seeds")
 
 
+# the card's host syncs that the tile-job build's own lines may make, by
+# layer (under torch.cuda.set_sync_debug_mode("warn")): cluster, the kept
+# clusters' count and their copy down; tile_diags, the placements' upload
+# and the job count; a DP batch's gathers, none.  A sync raised from
+# torch's own Python (once a process, seen at torch's __init__.py) is
+# listed apart
+JOB_SYNCS = {"cluster": 2, "chain": 0, "tile_diags": 2, "batches": 0}
+
+
+def contig_jobs_cuda_vs_cpu(ra, gseq, cfg, contigs, index) -> None:
+    """Phase kmer: the contig aligner's tile jobs of every draft contig
+    (ContigAligner.tile_jobs, no DP) on the card, on the read aligner's
+    device index, and on the CPU (`index`, the CPU's build): every
+    placement's chunk, orientation and length, every job's pid, ts,
+    tlen, g0, dst and src, and every DP batch's tiles, lengths, windows,
+    g0 and destinations (B_TILE lanes) equal.  Prints both calls' ms
+    (the card's synchronised) and the card's host syncs by layer,
+    counted under torch.cuda.set_sync_debug_mode("warn") in a third
+    call, which must stay within JOB_SYNCS at the port's own lines."""
+    import warnings
+
+    from aligngraph_tpu_torch.align import contig_aligner as cal
+
+    ca = cal.ContigAligner(gseq, cfg, index=ra.index, device="cuda")
+    ca.tile_jobs(contigs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ca.tile_jobs(contigs)
+    torch.cuda.synchronize()
+    cuda_ms = (time.perf_counter() - t0) * 1e3
+    layers = {k: round(v * 1e3, 3) for k, v in ca.layer_s.items()
+              if v}
+    t0 = time.perf_counter()
+    want = cal.ContigAligner(gseq, cfg, index=index,
+                             device="cpu").tile_jobs(contigs)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    bad = [f for f in ("chunk_id", "fr", "length")
+           if getattr(got, f).dtype != getattr(want, f).dtype
+           or not np.array_equal(getattr(got, f), getattr(want, f))]
+    bad += [f for f in ("pid", "ts", "tlen", "g0", "dst", "src")
+            if getattr(got, f).dtype != getattr(want, f).dtype
+            or not torch.equal(getattr(got, f).cpu(), getattr(want, f))]
+    for s in range(0, want.n, B_TILE):
+        bad += [f"{name} of batch {s}" for name, a, b in zip(
+            ("tiles", "tlens", "windows", "g0s", "dst"),
+            got.batch(s, B_TILE), want.batch(s, B_TILE))
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+    if bad or not want.n:
+        raise AssertionError(f"kmer: the card's tile jobs != the CPU's in "
+                             f"{bad} ({got.n} and {want.n} jobs)")
+    # the card's host syncs by layer, and the lines that made them: the
+    # module's functions wrapped
+    syncs = dict.fromkeys(JOB_SYNCS, 0)
+    sites, other = collections.Counter(), collections.Counter()
+    orig = {n: getattr(cal, n) for n in ("cluster_hits", "chain_clusters",
+                                         "build_tile_jobs")}
+
+    def counting(fn, layer):
+        def run(*args, **kw):
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    for w in seen:
+                        if "synchroniz" not in str(w.message):
+                            continue
+                        at = f"{Path(w.filename).name}:{w.lineno}"
+                        if "aligngraph_tpu_torch" in w.filename:
+                            syncs[layer] += 1
+                            sites[at] += 1
+                        else:
+                            other[f"{layer} {w.filename}:{w.lineno}"] += 1
+        return run
+
+    for name, layer in (("cluster_hits", "cluster"),
+                        ("chain_clusters", "chain"),
+                        ("build_tile_jobs", "tile_diags")):
+        setattr(cal, name, counting(orig[name], layer))
+    try:
+        jobs = ca.tile_jobs(contigs)
+    finally:
+        for name, fn in orig.items():
+            setattr(cal, name, fn)
+    batch = counting(jobs.batch, "batches")
+    for s in range(0, jobs.n, B_TILE):
+        batch(s, B_TILE)
+    over = {k: v for k, v in syncs.items() if v > JOB_SYNCS[k]}
+    if over:
+        raise AssertionError(f"kmer: the card's tile-job build made host "
+                             f"syncs {syncs}, more than {JOB_SYNCS}, at "
+                             f"{dict(sites)}; elsewhere {dict(other)}")
+    phase("kmer", f"contig tile jobs: {len(want.length)} placements, "
+          f"{want.n} jobs ({-(-want.n // B_TILE)} batches of {B_TILE}): "
+          f"cuda {cuda_ms:.1f} ms (by layer, host clock: {layers}), cpu "
+          f"{cpu_ms:.1f} ms; every job, placement, tile and window equal; "
+          f"the card's host syncs by layer {syncs}, at {dict(sites)}; "
+          f"in torch's own Python {dict(other)}")
+
+
 def eval_align_layers(genome_path, contigs_path) -> str:
     """Eval's contig align by layer, apart from any pinned Eval, which
     runs unwrapped.  No phase calls it (it took ~59 s after phase big's
@@ -1189,13 +1299,15 @@ def eval_align_layers(genome_path, contigs_path) -> str:
     t1 = time.perf_counter()
     ca = ContigAligner(gcat, Config(), accept=(0.0, 0.0, 0), device="cuda")
     t2 = time.perf_counter()
-    res, wall, layers = profile_contig.layer_align(ca, q, ca.device)
+    res, wall, layers, fin = profile_contig.layer_align(ca, q, ca.device)
     return (f"Eval's align by layer (eval_align_layers, after the pinned "
             f"Eval): {q.n_chunks} chunks, {res.n} placements; FASTA and "
             f"encoding {t1 - t0:.3f} s, index {t2 - t1:.3f} s, align "
             f"{wall:.3f} s (" + ", ".join(f"{k} {v:.3f}"
                                           for k, v in layers.items())
-            + ")")
+            + "; _finalize by step " + ", ".join(
+                f"{k} {v:.3f}" for k, v in fin["split"].items())
+            + f"; counts {fin['counts']})")
 
 
 INDEX_FIELDS = ("sorted_kmers", "sorted_posflip", "bucket_lo",
@@ -1358,6 +1470,7 @@ def kmer_build(wl: dict) -> dict:
     cali = ContigAligner(gseq, cfg, index=ra.index,
                          device="cuda").align(wl["contigs"])
     seeding_cuda_vs_cpu(ra, gseq, cfg, wl["contigs"], index)
+    contig_jobs_cuda_vs_cpu(ra, gseq, cfg, wl["contigs"], index)
     del ra, index, dev_index
     # the driver's C13 filter; one part, so every record is in it
     ok = np.nonzero(rali.ratio_ok(THRESHOLD))[0][:KMER_CHUNKS * KMER_CHUNK]
@@ -2116,6 +2229,11 @@ MASB_BUILDS = {"driver": 1, "contig_aligner": 1, "misassembly": 4,
                "evaluate": 1}
 
 
+def secs(d: dict) -> str:
+    """A dict of seconds as one line, 3 places."""
+    return ", ".join(f"{k} {v:.3f}" for k, v in d.items())
+
+
 def masb_index_builds(builds: list) -> None:
     """Phase masb's seed index builds (index_builds), each on the card,
     with its peak (peak_of_builds); then stage (5)'s index over
@@ -2262,9 +2380,13 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
     phase("masb", f"kmer_build {stage['kmer_build']:.2f} s, split by CUDA "
           f"events (s) {split}; with phase 0 on the host "
           f"{MASB_KMER_HOST_PHASE0}")
+    phase("masb", "the alignment stage's contig align by layer (s, host "
+          "clock): " + secs(st["contig_align_layers"]))
     for which, f in st["misassembly"].items():
         phase("masb", f"stage (5) {which}: " + ", ".join(
-            f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+            f"{k} {v:.2f}" if isinstance(v, float)
+            else f"{k} {{{secs(v)}}}" if k == "contigs_layer_s"
+            else f"{k} {v}"
             for k, v in f.items() if not k.endswith("_ids")))
     mem = {k: dict(dev=round(v.get("device_peak_bytes", 0) / 2**30, 2),
                    rss=round(v["host_rss_bytes"] / 1e9, 2),
@@ -2311,8 +2433,9 @@ def misassembly_phase(results: dict, work: Path, smi: str) -> None:
         evals[name] = {**{k: m[k] for k in EVAL_KEYS},
                        "average_identity": round(m["average_identity"], 4)}
         phase("masb", f"Eval of the {name} {time.perf_counter() - t0:.2f} s "
-              f"(upload {es['index_s']:.2f}, align {es['align_s']:.2f}, of "
-              f"it _finalize {es['finalize_s']:.2f}: " + ", ".join(
+              f"(upload {es['index_s']:.2f}, align {es['align_s']:.2f}; by "
+              f"layer {secs(es['layer_s'])}; of it _finalize "
+              f"{es['finalize_s']:.2f}: " + ", ".join(
                   f"{k} {v:.3f}" for k, v in es["finalize_split"].items())
               + f"; counts {es['finalize_counts']}; device peak above "
               f"the index {peak / 2**30:.3f} GiB, {per_base:.1f} B an "

@@ -15,6 +15,7 @@ import torch
 from aligngraph_tpu.config import Config as JaxConfig
 from aligngraph_tpu.pipeline.driver import run_pipeline as jax_run_pipeline
 from aligngraph_tpu_torch import workload
+from aligngraph_tpu_torch.align import contig_aligner as ca
 from aligngraph_tpu_torch.config import Config
 from aligngraph_tpu_torch.evaluate.evaluate import evaluate, genome_index
 from aligngraph_tpu_torch.io.fasta import read_fasta
@@ -251,6 +252,7 @@ def test_misassembly_stats(masb_runs):
         # the contig align's _finalize, by step, and its counts
         assert 0 <= sum(f["finalize_split"].values()) <= f["finalize_s"] \
             <= f["contigs_s"]
+        assert 0 <= sum(f["contigs_layer_s"].values()) <= f["contigs_s"]
         assert f["finalize_counts"]["rows"] == f["placements"]
     assert sum(f["contigs_split"] for f in st["misassembly"].values()) >= 1
 
@@ -287,7 +289,9 @@ def test_eval_shared_index_and_stats(masb_runs):
                        stats=st)
         assert got == evaluate(target, tdir / name, device="cpu"), name
         assert set(st) == {"index_s", "align_s", "finalize_s",
-                           "finalize_split", "finalize_counts"}
+                           "finalize_split", "finalize_counts", "layer_s"}
+        assert set(st["layer_s"]) == set(ca.LAYERS)
+        assert 0 <= sum(st["layer_s"].values()) <= st["align_s"]
         assert 0 <= st["finalize_s"] <= st["align_s"]
         assert 0 <= sum(st["finalize_split"].values()) <= st["finalize_s"]
         assert st["finalize_counts"]["placements"] >= \

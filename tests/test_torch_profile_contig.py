@@ -61,7 +61,8 @@ def test_counts_equal_jax_script(tmp_path, capsys):
     layers = rep["layers"][0]
     assert set(layers) == set(pc.LAYERS)
     assert all(v > 0 for v in layers.values()), layers
-    parts = sum(layers[k] for k in ("windows_host", "dp_device", "scatter"))
+    parts = sum(layers[k] for k in ("windows_device", "dp_device",
+                                     "scatter"))
     assert parts <= layers["dp"]
     # the finalize split and counts (no peak bytes without CUDA)
     assert len(rep["finalize_split"]) == 1
@@ -82,13 +83,14 @@ def test_counts_equal_jax_script(tmp_path, capsys):
     assert sd["batch_bytes"] > 0 and "device_peak_bytes" not in sd
     assert (tmp_path / "profile_contig.json").exists()
     # the wrappers are gone again
-    assert cal._cluster_and_chain.__name__ == "_cluster_and_chain"
+    assert all(getattr(cal, n).__name__ == n for n in pc.MODULE_LAYERS)
 
 
 def test_timed_tile_jobs_equal_module():
     """run_tile_jobs_timed gives each placement the pos_map bytes that
-    ContigAligner._run_tile_jobs gives it, on the same jobs; and the
-    layer-timed align the same alignments as a plain one."""
+    ContigAligner._run_tile_jobs gives it, on the same jobs (the device's
+    TileJobs, in several DP batches); and the layer-timed align the same
+    alignments as a plain one."""
     reference, seqs = pc.make_workload(MB)
     contigs = pc.make_contigs(seqs)
     ca = cal.ContigAligner(reference, Config(), device="cpu")
@@ -101,7 +103,9 @@ def test_timed_tile_jobs_equal_module():
     ca.align(contigs)
     del ca._run_tile_jobs
     jobs, pl = kept["jobs"], kept["placements"]
-    assert len(jobs) > ca.dp_batch // 8
+    assert jobs.n > ca.dp_batch // 8
+    ca.dp_batch = 32
+    assert jobs.n > 2 * ca.dp_batch
     want = copy.deepcopy(pl)
     ca._run_tile_jobs(jobs, want)
     got = copy.deepcopy(pl)
@@ -110,7 +114,7 @@ def test_timed_tile_jobs_equal_module():
     assert got.buf.numpy().tobytes() == want.buf.numpy().tobytes()
     assert all((got.buf[a:b] >= 0).any()
                for a, b in zip(got.off[:-1], got.off[1:]))
-    assert totals["dp_device"] > 0
+    assert totals["dp_device"] > 0 and totals["windows_device"] > 0
     # through align: the timed layers change nothing
     plain = ca.align(contigs)
     timed, _, _, fin = pc.layer_align(ca, contigs, torch.device("cpu"))

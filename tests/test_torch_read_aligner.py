@@ -204,7 +204,8 @@ def test_port_sources_import_no_jax():
     files = sorted((REPO / "aligngraph_tpu_torch").rglob("*.py"))
     # and the port's own scripts that drive it on the card
     port_scripts = [REPO / "scripts" / "read_split.py",
-                    REPO / "scripts" / "kmer_split.py"]
+                    REPO / "scripts" / "kmer_split.py",
+                    REPO / "scripts" / "contig_split.py"]
     assert {"contig_aligner.py", "driver.py", "misassembly.py",
             "refinement.py", "evaluate.py", "coverage.py",
             "__main__.py", "blat_cli.py", "kmer_layer_jit.py", "config.py",
