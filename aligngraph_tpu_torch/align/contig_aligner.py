@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -60,6 +59,7 @@ from aligngraph_tpu_torch.ops.banded_sw import banded_sw_posmap_auto
 from aligngraph_tpu_torch.ops.monotone_chain import monotone_chain
 from aligngraph_tpu_torch.ops.seeding import (
     ContigSeedHits, SeedIndex, build_index, contig_seed_hits)
+from aligngraph_tpu_torch.utils import spans
 
 TILE = 512
 # every tile re-anchors its diagonal from its own seed hits
@@ -74,7 +74,8 @@ MAX_PLACEMENTS = 4
 # tlen 0 (score 0, pos_map all -1), so the batch size changes only the
 # speed, never the output (tests/test_torch_contig_aligner.py)
 DP_BATCH = {"cuda": 2048, "cpu": 512}
-# an align's layers, as ContigAligner.layer_s times them
+# an align's layers, as ContigAligner.layer_s times them (its spans
+# align.contigs.<layer>)
 LAYERS = ("seed", "cluster", "chain", "tile_diags", "dp", "finalize")
 
 _COMP_NP = np.array([3, 2, 1, 0, 4], dtype=np.int8)
@@ -537,26 +538,10 @@ class Placements:
         self.buf[(dst[:, None] + cols[None, :])[ok]] = pm[ok]
 
 
-# _finalize's steps, in order, as finalize_placements times them
+# _finalize's steps, in order, as finalize_placements times them (its
+# spans align.contigs.finalize.<step>)
 FINALIZE_STEPS = ("blocks", "monotone", "chain", "unkeep_trim", "holes",
                   "rows", "copy")
-
-
-class _Steps:
-    """Seconds of each step on the host clock; on CUDA the device is
-    synchronised at each step's end, so a step holds its device work."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.seconds = dict.fromkeys(FINALIZE_STEPS, 0.0)
-        self.t = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        self.seconds[name] += t - self.t
-        self.t = t
 
 
 def _empty_alignments() -> ContigAlignments:
@@ -582,25 +567,30 @@ def finalize_placements(pl: Placements, accept: tuple, stats: dict
     of consecutive placements of at most FINALIZE_PASS_BASES buffer
     bases (or one placement), with one copy to the host a pass (pos_map:
     views of that pass's int32 array); the result does not depend on
-    the passes.  stats gets "split", the seconds of each of
-    FINALIZE_STEPS, and "counts": placements, aligned (those with an
+    the passes.  stats gets "split", the host seconds of each of
+    FINALIZE_STEPS (the steps' spans; nothing synchronises for them, so a
+    step's device work can end inside a later step, and the last copy to
+    the host ends them all), and "counts": placements, aligned (those with an
     aligned base), bases (aligned bases out of the tile DP), need_dp (not
     strictly increasing), blocks, dp_blocks, max_m and sum_m2 (the
     largest block count and the sum of the squares over need_dp), unkept
     and trimmed blocks, gaps and gaps_filled, rows, and passes.
     """
-    steps = _Steps(pl.buf.device)
+    split = dict.fromkeys(FINALIZE_STEPS, 0.0)
     counts = dict(placements=0, aligned=0, bases=0, need_dp=0, blocks=0,
                   dp_blocks=0, max_m=0, sum_m2=0, unkept=0, trimmed=0,
                   gaps=0, gaps_filled=0, rows=0, passes=0)
-    stats.update(split=steps.seconds, counts=counts)
+    stats.update(split=split, counts=counts)
     parts = []
     a, P = 0, len(pl.length)
     while a < P:
         b = int(np.searchsorted(pl.off, pl.off[a] + FINALIZE_PASS_BASES,
                                 "right"))
         b = max(a + 1, b - 1)
-        parts.append(_finalize_pass(pl.slice(a, b), accept, steps, counts))
+        with spans.Steps("align.contigs.finalize", device=pl.buf.device,
+                         seconds=split) as steps:
+            parts.append(_finalize_pass(pl.slice(a, b), accept, steps,
+                                        counts))
         counts["passes"] += 1
         a = b
     if len(parts) == 1:
@@ -613,20 +603,20 @@ def finalize_placements(pl: Placements, accept: tuple, stats: dict
         for f in dataclasses.fields(ContigAlignments)})
 
 
-def _finalize_pass(pl: Placements, accept: tuple, steps: _Steps,
+def _finalize_pass(pl: Placements, accept: tuple, steps: spans.Steps,
                    counts: dict) -> ContigAlignments:
-    """finalize_placements on one pass's placements; its seconds and
-    counts are added to steps and counts."""
+    """finalize_placements on one pass's placements, each of
+    FINALIZE_STEPS a step of `steps`; its counts are added to counts."""
     dev = pl.buf.device
     P = len(pl.length)
     buf = pl.buf
     counts["placements"] += P
     # 1. M-blocks: runs of consecutive bases with consecutive targets,
     #    never across placements
+    steps.step("blocks")
     idx = torch.nonzero(buf >= 0).squeeze(1)
     n = idx.numel()
     if n == 0:
-        steps.lap("blocks")
         return _empty_alignments()
     off_d = torch.from_numpy(pl.off).to(dev)
     val = buf[idx].long()
@@ -640,17 +630,17 @@ def _finalize_pass(pl: Placements, accept: tuple, steps: _Steps,
     t0 = val[bstart]
     t1 = val[bend - 1] + 1
     w = bend - bstart
-    steps.lap("blocks")
     # 2. the placements whose blocks are not strictly increasing (so they
     #    have two blocks and more); the others keep every block
+    steps.step("monotone")
     viol = (bseg[1:] == bseg[:-1]) & (t0[1:] < t1[:-1])
     need = torch.zeros(P, dtype=torch.bool, device=dev)
     need[bseg[1:][viol]] = True
     sel = need[bseg]
     m_q = torch.bincount(bseg, minlength=P)[need]
     q = m_q.numel()
-    steps.lap("monotone")
     # 3. the chain DP over those placements' blocks (CSR)
+    steps.step("chain")
     eb = torch.cumsum(new, 0) - 1               # each base's block
     dead = torch.zeros(n, dtype=torch.bool, device=dev)
     add = {}
@@ -658,9 +648,9 @@ def _finalize_pass(pl: Placements, accept: tuple, steps: _Steps,
         coff = torch.zeros(q + 1, dtype=torch.int64, device=dev)
         torch.cumsum(m_q, 0, out=coff[1:])
         _, _, trim, keep = monotone_chain(t0[sel], t1[sel], w[sel], coff)
-        steps.lap("chain")
         # 4-5. unkept blocks and the trimmed fronts of kept ones: a
         #    block's bases are consecutive, so its span is its bases
+        steps.step("unkeep_trim")
         dead_b = torch.zeros(len(bstart), dtype=torch.bool, device=dev)
         trim_b = torch.zeros_like(w)
         dead_b[sel] = ~keep
@@ -672,11 +662,11 @@ def _finalize_pass(pl: Placements, accept: tuple, steps: _Steps,
                    dp_blocks=keep.numel(), sum_m2=(m_q * m_q).sum())
         counts["max_m"] = max(counts["max_m"], int(m_q.max()))
     else:
-        steps.lap("chain")
-    steps.lap("unkeep_trim")
+        steps.step("unkeep_trim")
     # 6. gapless holes: a gap between aligned bases i0 < i1 whose targets
     #    step by i1 - i0 is filled; the gaps are disjoint and the fill
     #    keeps the ends, so all at once is the reference's loop
+    steps.step("holes")
     alive = ~dead
     idx, val, seg = idx[alive], val[alive], seg[alive]
     d = idx[1:] - idx[:-1]
@@ -690,10 +680,10 @@ def _finalize_pass(pl: Placements, accept: tuple, steps: _Steps,
         k = (torch.arange(total, device=dev)
              - (torch.cumsum(g_len, 0) - g_len)[gid] + 1)
         buf[g_i0[gid] + k] = (g_v0[gid] + k).to(torch.int32)
-    steps.lap("holes")
     # 7. row fields: the fill is interior and between its ends' targets,
     #    so the first and last aligned base and the target range are the
     #    surviving bases'; m counts the filled ones too
+    steps.step("rows")
     cnt = torch.bincount(seg, minlength=P)
     m = cnt + torch.zeros_like(cnt).index_add_(0, g_seg, g_len)
     has = cnt > 0
@@ -717,8 +707,8 @@ def _finalize_pass(pl: Placements, accept: tuple, steps: _Steps,
     fields = torch.stack([rows, m[rows], ss[rows], se[rows], qgap[rows],
                           ts[rows], te[rows], tgap[rows]])
     maps = buf[torch.repeat_interleave(ok, size, output_size=len(buf))]
-    steps.lap("rows")
     # 9. one copy to the host
+    steps.step("copy")
     out = torch.cat([fields.flatten().to(torch.int32), maps]).cpu().numpy()
     R = rows.numel()
     got = out[:8 * R].reshape(8, R)
@@ -729,7 +719,6 @@ def _finalize_pass(pl: Placements, accept: tuple, steps: _Steps,
                        gaps=gap.sum(), gaps_filled=fill.sum(), rows=R,
                        **add).items():
         counts[key] += int(v)
-    steps.lap("copy")
     return ContigAlignments(
         chunk_id=pl.chunk_id[r_host], fr=pl.fr[r_host], score=got[1].copy(),
         source_start=got[2].copy(), source_end=got[3].copy(),
@@ -789,10 +778,11 @@ class ContigAligner:
         self.dp_batch = DP_BATCH[self.device.type]
         # the last seeding's seeds, hits, batches and batch bytes
         self.seeding: dict = {}
-        # the last align's seconds by layer (LAYERS) on the host clock:
-        # the device is not synchronised for it, so a layer's device work
-        # can end inside a later layer's seconds (the syncs are the kept
-        # cluster count, the job count and the tile DP's own)
+        # the last align's seconds by layer (LAYERS) on the host clock,
+        # its layers' spans: the device is not synchronised for it, so a
+        # layer's device work can end inside a later layer's seconds (the
+        # syncs are the kept cluster count, the job count and the tile
+        # DP's own)
         self.layer_s = dict.fromkeys(LAYERS, 0.0)
         # the last align's seconds in _finalize, by step
         # (FINALIZE_STEPS), and its counts (finalize_placements)
@@ -831,40 +821,60 @@ class ContigAligner:
         clustering (cluster_hits), the tiles' diagonals and the jobs
         (build_tile_jobs) run on the device; the host chains the kept
         clusters (chain_clusters).  Sets layer_s's seed, cluster, chain
-        and tile_diags."""
+        and tile_diags, the seconds of those layers' spans; the seed
+        span's child align.contigs.segments is the segments' host loop,
+        concatenation and upload, and its counts are self.seeding."""
         self.layer_s = dict.fromkeys(LAYERS, 0.0)
-        t = time.perf_counter()
-        seqs = query_segments(contigs)
-        lens = np.array([len(x) for x in seqs], np.int64)
-        flat = np.concatenate(seqs) if seqs else np.zeros(0, np.int8)
-        segs = torch.from_numpy(flat).to(self.device)
-        hits = self._seed(segs, lens)
-        t = self._lap("seed", t)
-        cl = cluster_hits(hits.qpos, hits.tpos, hits.offsets,
-                          self.min_votes)
-        del hits
-        t = self._lap("cluster", t)
-        ch = chain_clusters(cl, self.max_join_gap)
-        t = self._lap("chain", t)
-        jobs = build_tile_jobs(cl, ch, lens, segs, self.genome_p)
-        self._lap("tile_diags", t)
+        dev = self.device
+        with spans.span("align.contigs.seed", device=dev, timed=True) as s:
+            with spans.span("align.contigs.segments", device=dev) as g:
+                seqs = query_segments(contigs)
+                lens = np.array([len(x) for x in seqs], np.int64)
+                flat = np.concatenate(seqs) if seqs else np.zeros(0,
+                                                                  np.int8)
+                segs = torch.from_numpy(flat).to(dev)
+                g.add(segments=len(seqs), bases=len(flat))
+            hits = self._seed(segs, lens)
+        self.layer_s["seed"] += s.seconds
+        s.add(**self.seeding)
+        with spans.span("align.contigs.cluster", device=dev,
+                        timed=True) as s:
+            cl = cluster_hits(hits.qpos, hits.tpos, hits.offsets,
+                              self.min_votes)
+            del hits
+        self.layer_s["cluster"] += s.seconds
+        with spans.span("align.contigs.chain", timed=True) as s:
+            ch = chain_clusters(cl, self.max_join_gap)
+        self.layer_s["chain"] += s.seconds
+        with spans.span("align.contigs.tile_diags", device=dev,
+                        timed=True) as s:
+            jobs = build_tile_jobs(cl, ch, lens, segs, self.genome_p)
+        self.layer_s["tile_diags"] += s.seconds
         return jobs
-
-    def _lap(self, name: str, t: float) -> float:
-        now = time.perf_counter()
-        self.layer_s[name] += now - t
-        return now
 
     # ------------------------------------------------------------------
     def align(self, contigs: Contigs) -> ContigAlignments:
-        jobs = self.tile_jobs(contigs)
-        placements = Placements.new(jobs.chunk_id, jobs.fr, jobs.length,
-                                    self.device)
-        t = time.perf_counter()
-        self._run_tile_jobs(jobs, placements)
-        t = self._lap("dp", t)
-        out = self._finalize(placements, contigs)
-        self.finalize_s = self._lap("finalize", t) - t
+        """Every chunk's placements: the span align.contigs (the sample's
+        root when called outside one) over tile_jobs' layers, then dp
+        (_run_tile_jobs) and finalize (_finalize, whose counts it
+        carries); finalize_s is its seconds."""
+        dev = self.device
+        with spans.span("align.contigs", device=dev) as call:
+            jobs = self.tile_jobs(contigs)
+            placements = Placements.new(jobs.chunk_id, jobs.fr, jobs.length,
+                                        dev)
+            with spans.span("align.contigs.dp", device=dev,
+                            timed=True) as s:
+                self._run_tile_jobs(jobs, placements)
+            self.layer_s["dp"] += s.seconds
+            s.add(jobs=jobs.n)
+            with spans.span("align.contigs.finalize", device=dev,
+                            timed=True) as s:
+                out = self._finalize(placements, contigs)
+            self.layer_s["finalize"] += s.seconds
+            self.finalize_s = s.seconds
+            s.add(**self.finalize_counts)
+            call.add(chunks=contigs.n_chunks, placements=out.n)
         return out
 
     # ------------------------------------------------------------------

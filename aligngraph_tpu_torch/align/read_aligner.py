@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -45,6 +44,7 @@ import torch
 from aligngraph_tpu_torch.align.types import PairAlignments
 from aligngraph_tpu_torch.config import Config
 from aligngraph_tpu_torch.io.formalize import Reads
+from aligngraph_tpu_torch.utils import spans
 from aligngraph_tpu_torch.utils.hostmem import tune_host_malloc
 from aligngraph_tpu_torch.ops.banded_sw import banded_sw_posmap_auto
 from aligngraph_tpu_torch.ops.seeding import (
@@ -866,7 +866,11 @@ class ReadAligner:
         capacity, header included, plus an overflowing batch's second
         block); self.split the host seconds, summed over the batches, in
         the wait for a block ("wait_s"), in copying records out of it
-        ("copy_out_s") and in the final concatenation ("concat_s")."""
+        ("copy_out_s") and in the final concatenation ("concat_s").  Both
+        are views of the call's spans (utils/spans.py): align.reads, then
+        per batch align.reads.enqueue (its device work), align.reads.wait
+        and align.reads.copy_out (its counts: the layout, host_bytes,
+        records), and align.reads.concat."""
         cfg = self.cfg
         L = max(reads.max_len, cfg.seed_len)
         if L > 32767 - 2 * cfg.band_pad:
@@ -881,25 +885,29 @@ class ReadAligner:
         self.split = dict(wait_s=0.0, copy_out_s=0.0, concat_s=0.0)
         n = reads.n_pairs
         chunks, inflight = [], collections.deque()
-        for start in range(0, max(n, 1), self.batch_pairs):
-            cnt = min(self.batch_pairs, n - start) if n else 0
-            # batch shape: the next power of two >= 1024 pairs, capped at
-            # batch_pairs, rounded up to a multiple of 128.  The DP
-            # capacity TOP depends on it and candidates past TOP are shed,
-            # so this rule is part of the output, not only of the speed.
-            P = min(self.batch_pairs,
-                    max(1024, 1 << (max(cnt, 1) - 1).bit_length()))
-            P = -(-P // 128) * 128
-            inflight.append(self._enqueue(reads, start, cnt, P, L, smin,
-                                          dense))
-            if len(inflight) == 2:
+        with spans.span("align.reads") as call:
+            for start in range(0, max(n, 1), self.batch_pairs):
+                cnt = min(self.batch_pairs, n - start) if n else 0
+                # batch shape: the next power of two >= 1024 pairs, capped
+                # at batch_pairs, rounded up to a multiple of 128.  The DP
+                # capacity TOP depends on it and candidates past TOP are
+                # shed, so this rule is part of the output, not only of
+                # the speed.
+                P = min(self.batch_pairs,
+                        max(1024, 1 << (max(cnt, 1) - 1).bit_length()))
+                P = -(-P // 128) * 128
+                inflight.append(self._enqueue(reads, start, cnt, P, L,
+                                              smin, dense))
+                if len(inflight) == 2:
+                    chunks.append(self._decode(inflight.popleft(), L))
+            while inflight:
                 chunks.append(self._decode(inflight.popleft(), L))
-        while inflight:
-            chunks.append(self._decode(inflight.popleft(), L))
-        t0 = time.perf_counter()
-        cat = chunks[0] if len(chunks) == 1 else {
-            k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
-        self.split["concat_s"] += time.perf_counter() - t0
+            with spans.span("align.reads.concat", timed=True) as s:
+                cat = chunks[0] if len(chunks) == 1 else {
+                    k: np.concatenate([c[k] for c in chunks])
+                    for k in chunks[0]}
+            self.split["concat_s"] += s.seconds
+            call.add(pairs=n, records=len(cat["pair_id"]))
         return PairAlignments(**cat)
 
     def _enqueue(self, reads: Reads, start: int, cnt: int, P: int, L: int,
@@ -911,29 +919,32 @@ class ReadAligner:
         cfg = self.cfg
         dev = self.genome_p.device
         cuda = dev.type == "cuda"
-        seqs = torch.full((2 * P, L), 4, dtype=torch.int8, pin_memory=cuda)
-        plens = torch.zeros(P, dtype=torch.int32, pin_memory=cuda)
-        if cnt > 0:
-            blk = reads.data[2 * start:2 * (start + cnt)]
-            seqs.numpy()[:2 * cnt, :blk.shape[1]] = blk
-            plens.numpy()[:cnt] = reads.lengths[start:start + cnt]
-        seqs_d = seqs.to(dev, non_blocking=True)
-        plens_d = plens.to(dev, non_blocking=True)
-        rc = revcomp_padded(seqs_d, plens_d.repeat_interleave(2))
-        out = _align_core(
-            self.genome_p, self.index, seqs_d, rc, plens_d, smin,
-            seed_len=cfg.seed_len, stride=cfg.seed_stride,
-            pad=cfg.band_pad, C=cfg.max_candidates, K=MAX_PAIR_HITS,
-            dlow=cfg.distance_low, dhigh=cfg.distance_high,
-            mh=cfg.max_seed_hits)
-        buf = compact(out, P, c13=self.c13, dense=dense)
-        if dense:
-            res = unpack_dense(buf, P)
-            rec, n = _expand_dense(res, start, cnt, L, plens_d)
-        else:
-            res = unpack_records(buf, P)
-            rec, n = _expand_packed(res, start, cnt, L, plens_d)
-        blk, event = _to_host(_row_table(rec, n, res["overflow"]))
+        with spans.span("align.reads.enqueue", device=dev) as s:
+            s.add(pairs=cnt, capacity=P)
+            seqs = torch.full((2 * P, L), 4, dtype=torch.int8,
+                              pin_memory=cuda)
+            plens = torch.zeros(P, dtype=torch.int32, pin_memory=cuda)
+            if cnt > 0:
+                blk = reads.data[2 * start:2 * (start + cnt)]
+                seqs.numpy()[:2 * cnt, :blk.shape[1]] = blk
+                plens.numpy()[:cnt] = reads.lengths[start:start + cnt]
+            seqs_d = seqs.to(dev, non_blocking=True)
+            plens_d = plens.to(dev, non_blocking=True)
+            rc = revcomp_padded(seqs_d, plens_d.repeat_interleave(2))
+            out = _align_core(
+                self.genome_p, self.index, seqs_d, rc, plens_d, smin,
+                seed_len=cfg.seed_len, stride=cfg.seed_stride,
+                pad=cfg.band_pad, C=cfg.max_candidates, K=MAX_PAIR_HITS,
+                dlow=cfg.distance_low, dhigh=cfg.distance_high,
+                mh=cfg.max_seed_hits)
+            buf = compact(out, P, c13=self.c13, dense=dense)
+            if dense:
+                res = unpack_dense(buf, P)
+                rec, n = _expand_dense(res, start, cnt, L, plens_d)
+            else:
+                res = unpack_records(buf, P)
+                rec, n = _expand_packed(res, start, cnt, L, plens_d)
+            blk, event = _to_host(_row_table(rec, n, res["overflow"]))
         # the full layout stays on the device until the flag is read
         return dict(start=start, cnt=cnt, dense=dense, out=out, blk=blk,
                     event=event)
@@ -942,13 +953,15 @@ class ReadAligner:
         """Wait for one batch's block, read its header and copy its records
         out; a batch over its buffer's capacities is decoded again on the
         device from its full layout (as the JAX package re-runs it), and
-        its records come down in a block of their own."""
-        t, sp = self.transfer, self.split
-        t0 = time.perf_counter()
-        _wait(batch["event"])
-        sp["wait_s"] += time.perf_counter() - t0
+        its records come down in a block of their own.  The block's
+        layout and host bytes are the copy_out span's counts, and
+        self.transfer sums them."""
+        sp = self.split
+        with spans.span("align.reads.wait", timed=True) as s:
+            _wait(batch["event"])
+        sp["wait_s"] += s.seconds
         blk = batch["blk"].numpy()
-        t["host_bytes"] += blk.nbytes
+        counts = dict(host_bytes=blk.nbytes)
         if blk[1]:
             # more records or M-blocks than the buffer holds (heavy
             # multi-mapping or a very gappy batch); C13 is already in
@@ -956,17 +969,20 @@ class ReadAligner:
             rec, n = _expand_full(batch["out"], batch["start"],
                                   batch["cnt"], L)
             host, event = _to_host(_row_table(rec, n, torch.zeros_like(n)))
-            t0 = time.perf_counter()
-            _wait(event)
-            sp["wait_s"] += time.perf_counter() - t0
+            with spans.span("align.reads.wait", timed=True) as s:
+                _wait(event)
+            sp["wait_s"] += s.seconds
             blk = host.numpy()
-            t["host_bytes"] += blk.nbytes
-            t["overflow"] += 1
+            counts.update(host_bytes=counts["host_bytes"] + blk.nbytes,
+                          overflow=1)
         else:
-            t["dense" if batch["dense"] else "per_slot"] += 1
-        t0 = time.perf_counter()
-        rec = _copy_out(blk, L)
-        sp["copy_out_s"] += time.perf_counter() - t0
+            counts["dense" if batch["dense"] else "per_slot"] = 1
+        with spans.span("align.reads.copy_out", timed=True) as s:
+            rec = _copy_out(blk, L)
+        sp["copy_out_s"] += s.seconds
+        s.add(records=len(rec["pair_id"]), **counts)
+        for k, v in counts.items():
+            self.transfer[k] += v
         return rec
 
 

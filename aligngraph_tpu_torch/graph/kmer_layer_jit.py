@@ -42,6 +42,7 @@ from aligngraph_tpu_torch.graph.kmer_layer import (
     _COMP, CPM, CPO, KmerBuildStats,
 )
 from aligngraph_tpu_torch.graph.model import E_ED, K_KM, NONE32, GraphTensors
+from aligngraph_tpu_torch.utils import spans
 
 I32 = torch.int32
 I64 = torch.int64
@@ -487,24 +488,27 @@ def _on_grid(vals, valid):
 
 
 def _chunk_update(state, cmpack, p1, p2, s1, lens, keep, *, k: int,
-                  win: int, n_pos: int, mark=None):
+                  win: int, n_pos: int, steps=None):
     """One chunk of records into the device state (in place).  Returns
     (tuples, rows, groups) as ints and (dropped_slots, dropped_edges) as
-    device scalars.  mark(name), when given, is called after each phase
-    ("emit": emission and expansion, "group", "rounds", "edges")."""
+    device scalars.  steps, when given (utils/spans.Steps), gets a step
+    for each phase ("emit": emission and expansion, "group", "rounds",
+    "edges")."""
+    if steps:
+        steps.step("emit")
     tup, rows, valid1, valid2, R1 = _emit_rows(cmpack, n_pos, p1, p2, s1,
                                                lens, keep, k)
-    if mark:
-        mark("emit")
 
+    if steps:
+        steps.step("group")
     order, gid, grp = _group(rows)
-    if mark:
-        mark("group")
 
+    if steps:
+        steps.step("rounds")
     g_slot, dslots = _rounds(state, grp, n_pos, win)
-    if mark:
-        mark("rounds")
 
+    if steps:
+        steps.step("edges")
     # slot of every row, spread back onto the [NC, T] combo grids
     row_slot = torch.empty_like(gid)
     row_slot[order] = g_slot[gid]
@@ -514,8 +518,6 @@ def _chunk_update(state, cmpack, p1, p2, s1, lens, keep, *, k: int,
     dpc, ds = cand[2].clamp(0, n_pos - 1), cand[3]
     dedges = _append_edges(state, *cand,
                            [state[f][dpc, ds] for f in ANCHORS], n_pos, win)
-    if mark:
-        mark("edges")
     return (tup["cur"].numel(), rows["pos"].numel(), grp["pos"].numel(),
             dslots, dedges)
 
@@ -701,7 +703,8 @@ def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
                             stats: Optional[KmerBuildStats] = None, *,
                             device,
                             mark: Optional[Callable[[str], None]] = None,
-                            rows: Optional[np.ndarray] = None
+                            rows: Optional[np.ndarray] = None,
+                            split: Optional[dict] = None
                             ) -> KmerBuildStats:
     """Drop-in for kmer_layer.build_kmer_layer with phases 1-5 on
     `device` ("cuda" on the card; "cpu" runs the same ops on the host).
@@ -719,12 +722,14 @@ def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
     (groups, dropped_*) depend on the chunk boundaries, so the pipeline's
     kmer stats stay comparable when toggling cfg.graph_build.
 
-    mark(name), when given, is called after each stage of the build:
-    "normalize" (the skip), "h2d" (the state), then for each chunk
-    "gather" (its host gathers and upload), "phase0" (its rows) and the
-    phases of `_chunk_update`, and "d2h" (the state back in g).  The
-    driver and chip_smoke.py record a CUDA event there to split the
-    build's time.
+    Each stage of the build is a span graph.kmer.<stage> (utils/spans.py
+    Steps, under the span open at the call): "normalize" (the skip),
+    "h2d" (the state), then for each chunk "gather" (its host gathers and
+    upload), "phase0" (its rows) and the phases of `_chunk_update`, and
+    "d2h" (the state back in g).  mark(name), when given, is called as
+    each stage ends.  split, a dict, gets on a CUDA device each stage's
+    device ms between CUDA events at its ends, summed by stage (it waits
+    for the last event).
     """
     if k > MAX_K:
         raise ValueError(f"k-mer size {k} > {MAX_K}: the 3-bit k-mer "
@@ -735,41 +740,51 @@ def build_kmer_layer_device(g: GraphTensors, pairs, reads, k: int,
     if M == 0:
         return st
     dev = torch.device(device)
+    steps = spans.Steps("graph.kmer", device=dev, mark=mark,
+                        events=split is not None)
+    with steps:
+        _build_steps(steps, g, pairs, reads, rows, k, insert_variation,
+                     part_offset, chunk_records, st, dev)
+    if split is not None:
+        for name, ms in steps.device_ms().items():
+            split[name] = split.get(name, 0.0) + ms
+    return st
+
+
+def _build_steps(steps, g: GraphTensors, pairs, reads, rows: np.ndarray,
+                 k: int, insert_variation: int, part_offset: int,
+                 chunk_records: int, st: KmerBuildStats, dev) -> None:
+    """build_kmer_layer_device's stages, each a step of `steps`."""
+    M = len(rows)
+    steps.step("normalize")
     skip = phase0_skip(pairs, rows, part_offset, g.part_len, device=dev)
-    if mark:
-        mark("normalize")
     if pairs.pos_map.shape[2] - k <= 0:
-        return st
+        return
     # state arrays span part_len + overflow_cap (record positions are
     # always < part_len, but the array axes must agree)
+    steps.step("h2d")
     n_pos = int(g.km_cnt.shape[0])
     assert n_pos < (1 << 30)
     cmpack = _cmpack(g, dev)
     state = _state_from_graph(g, dev)
-    if mark:
-        mark("h2d")
     win = 2 * insert_variation + 5 * EP
     dropped = torch.zeros(2, dtype=I64, device=dev)
     for s in range(0, M, chunk_records):
         e = min(s + chunk_records, M)
+        steps.step("gather")
         got = phase0_gather(pairs, rows, reads, s, e, device=dev)
-        if mark:
-            mark("gather")
+        steps.step("phase0")
         args = phase0_rows(*got, skip[s:e], k, part_offset, g.part_len)
         del got
-        if mark:
-            mark("phase0")
         tuples, rows_n, groups, dslots, dedges = _chunk_update(
-            state, cmpack, *args, k=k, win=win, n_pos=n_pos, mark=mark)
+            state, cmpack, *args, k=k, win=win, n_pos=n_pos, steps=steps)
         st.tuples += tuples
         st.rows += rows_n
         st.groups += groups
         dropped[0] += dslots
         dropped[1] += dedges
+    steps.step("d2h")
     _state_to_graph(state, g)
     dslots, dedges = dropped.tolist()
     st.dropped_slots += dslots
     st.dropped_edges += dedges
-    if mark:
-        mark("d2h")
-    return st

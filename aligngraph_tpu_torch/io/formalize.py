@@ -30,6 +30,7 @@ import numpy as np
 
 from aligngraph_tpu_torch.config import LARGE_CHUNK
 from aligngraph_tpu_torch.io.fasta import encode, read_fasta
+from aligngraph_tpu_torch.utils import spans
 
 CHAFF_CUTOFF = 200  # keep contigs strictly longer than this (AlignGraph.cpp:3265)
 CHUNK_TAIL_MERGE = 60  # trailing chunk <= 60bp merges back (AlignGraph.cpp:3283)
@@ -153,6 +154,7 @@ def _iter_fasta_seqs(path):
             f.close()
 
 
+@spans.spanned("formalize.reads")
 def formalize_reads(path1, path2, memmap_path=None) -> Reads:
     """ref AlignGraph.cpp:3420-3518 — pair-synchronized, min-length
     truncated.
@@ -224,6 +226,7 @@ def _chunk_boundaries(length: int) -> List[Tuple[int, int]]:
     return [(cuts[i], cuts[i + 1] - cuts[i]) for i in range(len(cuts) - 1)]
 
 
+@spans.spanned("formalize.contigs")
 def formalize_contigs(path) -> Contigs:
     """ref AlignGraph.cpp:3228-3319 — chaff cut at 200bp + 1Mb chunking."""
     ids, seqs = read_fasta(path)
@@ -254,6 +257,7 @@ def formalize_contigs(path) -> Contigs:
     )
 
 
+@spans.spanned("formalize.genome")
 def formalize_genome(path, part: int = 1) -> Genome:
     """ref AlignGraph.cpp:3347-3418 — per-chromosome `part`-way splitting.
 

@@ -1517,32 +1517,22 @@ def kmer_build(wl: dict) -> dict:
           f"{peak / 2**30:.2f} GiB (state {state_bytes / 2**30:.2f} GiB)")
 
     # the device build's time split over all accepted records (the full
-    # size of the pipeline's stage): a CUDA event after each stage
-    events = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((name, ev))
-
+    # size of the pipeline's stage): CUDA events at each stage's ends
     acc = np.nonzero(rali.ratio_ok(THRESHOLD))[0]
     every = dataclasses.replace(rali, **{
         f.name: getattr(rali, f.name)[acc] for f in dataclasses.fields(rali)})
     g_split = copy.deepcopy(g0)
+    split: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mark("start")
     st = kj.build_kmer_layer_device(g_split, every, reads, k, iv,
                                     chunk_records=KMER_CHUNK, device="cuda",
-                                    mark=mark)
+                                    split=split)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if dataclasses.asdict(st) != HOST_KMER_STATS:
         raise AssertionError(f"full-size device build stats {st} != "
                              f"{HOST_KMER_STATS}")
-    split: dict = {}
-    for (_, a), (name, b) in zip(events, events[1:]):
-        split[name] = split.get(name, 0.0) + a.elapsed_time(b)
     phase("kmer", f"all {every.n} records ({-(-every.n // KMER_CHUNK)} "
           f"chunks): wall {wall:.3f} s; split, CUDA-event ms (normalize is "
           f"phase 0's duplicate skip, h2d the state's upload, gather each "
@@ -2207,8 +2197,8 @@ MASB_KMER_STATS = {"tuples": 577_458_845, "rows": 1_155_449_911,
                    "groups": 583_659_817, "dropped_rank": 0,
                    "dropped_slots": 0, "dropped_edges": 0}
 # phase masb's k-mer build with phase 0 on the host (its numpy rows and
-# skip; scripts/kmer_split.py on NVIDIA H100 80GB HBM3, 700.00 W, see
-# PERF.md): the stage's seconds and its CUDA-event split, s
+# skip; on NVIDIA H100 80GB HBM3, 700.00 W, see PERF.md): the stage's
+# seconds and its CUDA-event split, s
 MASB_KMER_HOST_PHASE0 = {"kmer_build": 51.99, "normalize": 0.58,
                          "h2d": 36.77, "emit": 1.60, "group": 1.21,
                          "rounds": 8.51, "edges": 1.74, "d2h": 1.56}

@@ -202,10 +202,6 @@ def test_port_sources_import_no_jax():
     scripts = re.compile(r"^\s*(import|from)\s+(bench|bench_pipeline)"
                          r"(\s|\.|$)", re.M)
     files = sorted((REPO / "aligngraph_tpu_torch").rglob("*.py"))
-    # and the port's own scripts that drive it on the card
-    port_scripts = [REPO / "scripts" / "read_split.py",
-                    REPO / "scripts" / "kmer_split.py",
-                    REPO / "scripts" / "contig_split.py"]
     assert {"contig_aligner.py", "driver.py", "misassembly.py",
             "refinement.py", "evaluate.py", "coverage.py",
             "__main__.py", "blat_cli.py", "kmer_layer_jit.py", "config.py",
@@ -216,7 +212,7 @@ def test_port_sources_import_no_jax():
             "dryrun.py", "bench.py", "bench_pipeline.py",
             "ecoli_scale.py", "profile_align.py",
             "profile_contig.py"} <= {f.name for f in files}
-    for f in files + port_scripts + [REPO / "chip_smoke.py"]:
+    for f in files + [REPO / "chip_smoke.py"]:
         text = f.read_text()
         assert not pat.search(text), f
         assert not pkg.search(text), f
