@@ -5,9 +5,11 @@ Counterpart of aligngraph_tpu/align/contig_aligner.py; its output equals
 the JAX ContigAligner.align field by field.  The design is the same, but
 everything from the seeds to the tile DP's batches stays on the
 aligner's device, and only the greedy chain runs on the host:
-  1. device seeding: every chunk and its reverse complement uploaded at
-     once (one flat buffer of segments), their seeds looked up in the
-     canonical SeedIndex in a few batched calls
+  1. device seeding: the real contigs go up end to end in one copy (a
+     reused staging buffer, pinned for a CUDA aligner), every chunk and
+     its reverse complement are laid out from them on the device (one
+     flat buffer of segments, segment_layout), their seeds looked up in
+     the canonical SeedIndex in a few batched calls
      (ops/seeding.contig_seed_hits) -> (qpos, tpos) hits per segment, the
      hits the JAX module's per-query host lookup gives
   2. device clustering (cluster_hits): the hits of every segment sorted
@@ -78,6 +80,10 @@ DP_BATCH = {"cuda": 2048, "cpu": 512}
 # align.contigs.<layer>)
 LAYERS = ("seed", "cluster", "chain", "tile_diags", "dp", "finalize")
 
+# output bases a piece of segment_layout: its int32 temporaries are
+# 16 MB each
+LAYOUT_PIECE = 1 << 22
+
 _COMP_NP = np.array([3, 2, 1, 0, 4], dtype=np.int8)
 
 
@@ -92,6 +98,51 @@ def query_segments(contigs: Contigs) -> List[np.ndarray]:
     for c in range(contigs.n_chunks):
         fwd = np.asarray(contigs.chunk_seq(c), np.int8)
         out += [fwd, _revcomp_np(fwd)]
+    return out
+
+
+def segment_layout(fwd: torch.Tensor, contigs: Contigs) -> torch.Tensor:
+    """np.concatenate(query_segments(contigs)) built on fwd's device from
+    fwd, contigs.seqs end to end (int8 codes): segment 2c is chunk c,
+    fwd[g:g + chunk_len[c]] with g its real's first base plus
+    chunk_start[c], and segment 2c + 1 its reverse complement (codes 0-3
+    -> 3 - x, 4 kept).  Any chunk table whose chunks lie inside their
+    reals will do.  Built in pieces of at most LAYOUT_PIECE output bases
+    with int32 offsets, so its temporaries stay small whatever the
+    segments' size; nothing waits for the device."""
+    dev = fwd.device
+    clen = np.asarray(contigs.chunk_len, np.int64)
+    real0 = np.cumsum([0] + [len(s) for s in contigs.seqs])
+    g = (real0[np.asarray(contigs.chunk_real, np.int64)]
+         + np.asarray(contigs.chunk_start, np.int64))
+    start = np.concatenate([[0], np.cumsum(np.repeat(clen, 2))])
+    N = int(start[-1])
+    # each segment's first source base: a reverse one reads down from
+    # its chunk's last
+    first = np.repeat(g, 2)
+    first[1::2] += clen - 1
+    src_dtype = torch.int32 if len(fwd) < 2**31 else torch.int64
+    start_d = torch.from_numpy(start).to(dev)
+    first_d = torch.from_numpy(first).to(dev, src_dtype)
+    out = torch.empty(N, dtype=torch.int8, device=dev)
+    for a in range(0, N, LAYOUT_PIECE):
+        b = min(a + LAYOUT_PIECE, N)
+        # the segments that overlap [a, b): the last to start at or
+        # before a (zero-length ones skipped) to the last to start
+        # before b
+        s0 = int(np.searchsorted(start, a, "right")) - 1
+        s1 = int(np.searchsorted(start, b, "left"))
+        st = (start_d[s0:s1] - a).to(torch.int32)
+        loc = torch.arange(b - a, dtype=torch.int32, device=dev)
+        k = torch.searchsorted(st, loc, right=True, out_int32=True) - 1
+        off = loc - st.index_select(0, k)
+        del loc
+        rev = ((k + (s0 & 1)) & 1).bool()
+        src = first_d[s0:s1].index_select(0, k) + torch.where(rev, -off, off)
+        del k, off
+        v = fwd.index_select(0, src)
+        del src
+        out[a:b] = torch.where(rev & (v < 4), 3 - v, v)
     return out
 
 
@@ -789,6 +840,13 @@ class ContigAligner:
         self.finalize_s = 0.0
         self.finalize_split: dict = {}
         self.finalize_counts: dict = {}
+        # the host buffer the real contigs are written to before their
+        # one copy up (_segments), pinned for a CUDA aligner; grown
+        # geometrically, and reused once the event of its last copy has
+        # passed
+        self._pinned = self.device.type == "cuda"
+        self._staging = torch.empty(0, dtype=torch.int8)
+        self._staged = None
 
     # ------------------------------------------------------------------
     def seed_hits(self, seqs: List[np.ndarray]):
@@ -815,25 +873,52 @@ class ContigAligner:
         return hits
 
     # ------------------------------------------------------------------
+    def _segments(self, contigs: Contigs):
+        """The query segments on the aligner's device, as
+        np.concatenate(query_segments(contigs)), and their lengths: the
+        real contigs written end to end into the staging buffer, one
+        copy of them up, the layout on the device (segment_layout).
+        Nothing of them is kept after the call but the buffer.  Returns
+        (segs, lens, counts): the bytes copied up, whether the buffer is
+        pinned, and whether it grew."""
+        T = sum(len(s) for s in contigs.seqs)
+        grows = int(T > len(self._staging))
+        if grows:
+            self._staging = torch.empty(max(T, 2 * len(self._staging)),
+                                        dtype=torch.int8,
+                                        pin_memory=self._pinned)
+        elif self._staged is not None:
+            # the last copy out of the buffer has to be done first
+            self._staged.synchronize()
+        if T:
+            np.concatenate(contigs.seqs, out=self._staging.numpy()[:T],
+                           casting="unsafe")
+        fwd = self._staging[:T].to(self.device, non_blocking=True)
+        if self._pinned:
+            self._staged = torch.cuda.Event()
+            self._staged.record(torch.cuda.current_stream(self.device))
+        segs = segment_layout(fwd, contigs)
+        lens = np.repeat(np.asarray(contigs.chunk_len, np.int64), 2)
+        return segs, lens, dict(host_bytes=T, pinned=int(self._pinned),
+                                staging_grows=grows)
+
+    # ------------------------------------------------------------------
     def tile_jobs(self, contigs: Contigs) -> TileJobs:
         """Every chunk's tile jobs, both orientations, on the aligner's
-        device: the segments (query_segments) go up in one copy; seeding,
+        device: the segments are laid out there (_segments); seeding,
         clustering (cluster_hits), the tiles' diagonals and the jobs
         (build_tile_jobs) run on the device; the host chains the kept
         clusters (chain_clusters).  Sets layer_s's seed, cluster, chain
         and tile_diags, the seconds of those layers' spans; the seed
-        span's child align.contigs.segments is the segments' host loop,
-        concatenation and upload, and its counts are self.seeding."""
+        span's child align.contigs.segments is _segments (the staging
+        write, the copy up and the layout's launches), and its counts
+        are self.seeding."""
         self.layer_s = dict.fromkeys(LAYERS, 0.0)
         dev = self.device
         with spans.span("align.contigs.seed", device=dev, timed=True) as s:
             with spans.span("align.contigs.segments", device=dev) as g:
-                seqs = query_segments(contigs)
-                lens = np.array([len(x) for x in seqs], np.int64)
-                flat = np.concatenate(seqs) if seqs else np.zeros(0,
-                                                                  np.int8)
-                segs = torch.from_numpy(flat).to(dev)
-                g.add(segments=len(seqs), bases=len(flat))
+                segs, lens, staged = self._segments(contigs)
+                g.add(segments=len(lens), bases=len(segs), **staged)
             hits = self._seed(segs, lens)
         self.layer_s["seed"] += s.seconds
         s.add(**self.seeding)
