@@ -18,7 +18,7 @@ from aligngraph_tpu_torch.align import contig_aligner as cal
 from aligngraph_tpu_torch.align.contig_aligner import ContigAligner
 from aligngraph_tpu_torch.align.read_aligner import ReadAligner
 from aligngraph_tpu_torch.config import Config
-from aligngraph_tpu_torch.io.fasta import decode, write_fasta
+from aligngraph_tpu_torch.io.fasta import decode, read_fasta, write_fasta
 from aligngraph_tpu_torch.io.formalize import (formalize_contigs,
                                                formalize_reads)
 from aligngraph_tpu_torch.pipeline.driver import run_pipeline
@@ -378,3 +378,91 @@ def test_store_keeps_the_newest(monkeypatch):
     assert [r["name"] for r in spans.records()] == ["s2", "s3", "s4", "s5"]
     spans.records(clear=True)
     assert spans.records() == []
+
+
+# stage (5)'s stats keys, as remove_misassembly has always kept them
+MASB_STATS = {"index_s", "reads_s", "read_records", "reads_wait_s",
+              "reads_copy_out_s", "reads_concat_s", "coverage_s",
+              "contig_index_s", "contigs_s", "placements", "finalize_s",
+              "finalize_split", "finalize_counts", "contigs_layer_s",
+              "placement_loops_s", "sweep_split_s", "contigs_in",
+              "whole_safe", "contigs_split", "pieces_out", "whole_safe_ids",
+              "split_ids"}
+MASB_STEPS = ("index", "reads", "coverage", "contig_index", "contigs",
+              "placement_loops", "sweep_split")
+
+
+def check_masb_root(recs, root, stats, which, written):
+    """One `misassembly` span: its counts, its children, and stats as a
+    view of them."""
+    ids = by_id(recs)
+    mine = [r for r in recs if r["sample"] == root["sample"]
+            and root in ancestors(r, ids)]
+    child = {r["name"]: r for r in mine if r["parent"] == root["id"]}
+    assert set(child) == {f"misassembly.{s}" for s in MASB_STEPS} | {
+        "misassembly.formalize", "misassembly.write"}
+    assert any(r["name"] == "formalize.contigs"
+               and r["parent"] == child["misassembly.formalize"]["id"]
+               for r in mine)
+    for step in MASB_STEPS:
+        assert close(stats[f"{step}_s"],
+                     child[f"misassembly.{step}"]["host_s"]), step
+    ids_out, seqs_out = written
+    assert root["counts"] == dict(
+        contigs_in=stats["contigs_in"], bases_in=root["counts"]["bases_in"],
+        read_records=stats["read_records"], placements=stats["placements"],
+        whole_safe=stats["whole_safe"], contigs_split=stats["contigs_split"],
+        pieces_out=stats["pieces_out"],
+        bases_out=sum(len(s) for s in seqs_out[:stats["pieces_out"]]),
+        which=which)
+    assert stats["pieces_out"] <= len(ids_out)
+    reads = child["misassembly.reads"]["counts"]
+    assert reads["records"] == stats["read_records"] and reads["pairs"] > 0
+    assert set(stats) == MASB_STATS
+
+
+def test_misassembly_root_span(sim_dir, tmp_path):
+    from aligngraph_tpu_torch.pipeline.misassembly import remove_misassembly
+
+    d, sim = sim_dir
+    reads = formalize_reads(str(d / "r1.fa"), str(d / "r2.fa"))
+    contigs = formalize_contigs(str(d / "contigs.fa"))
+    cfg = Config(distance_low=300, distance_high=700)
+    stats = {}
+    spans.records(clear=True)
+    with spans.recording():
+        out = remove_misassembly(str(d / "contigs.fa"), cfg,
+                                 np.asarray(sim.reference, np.int8), reads,
+                                 "extended", out_path=str(tmp_path / "c.fa"),
+                                 device="cpu", stats=stats)
+    recs = spans.records(clear=True)
+    roots = [r for r in recs if r["parent"] is None]
+    assert [r["name"] for r in roots] == ["misassembly"]
+    check_masb_root(recs, roots[0], stats, 0, read_fasta(out))
+    assert roots[0]["counts"]["bases_in"] == sum(len(s) for s in
+                                                 contigs.seqs)
+    assert reads.n_pairs == next(r for r in recs if r["name"] ==
+                                 "misassembly.reads")["counts"]["pairs"]
+
+
+def test_misassembly_spans_under_run_pipeline(sim_dir, tmp_path):
+    import dataclasses
+
+    d = sim_dir[0]
+    cfg = dataclasses.replace(sim_cfg(d, tmp_path), misassembly_removal=True)
+    spans.records(clear=True)
+    with spans.recording():
+        res = run_pipeline(cfg, device="cpu")
+    recs = spans.records(clear=True)
+    assert [r["name"] for r in recs if r["parent"] is None] == ["pipeline"]
+    ids = by_id(recs)
+    stage = next(r for r in recs if r["name"] == "pipeline.misassembly")
+    roots = [r for r in recs if r["name"] == "misassembly"]
+    assert [ids[r["parent"]] for r in roots] == [stage, stage]
+    masb = res.stats["misassembly"]
+    for root, which in zip(roots, ("extended", "remaining")):
+        out = tmp_path / f"corrected_{which}.fa"
+        check_masb_root(recs, root, masb[which],
+                        0 if which == "extended" else 1, read_fasta(out))
+    assert close(res.stats["stage_seconds"]["misassembly_removal"],
+                 stage["host_s"])
